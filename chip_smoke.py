@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/H100 port runs on the card.
+
+    python3 chip_smoke.py            # every phase, one CUDA card
+
+Phases (any failure exits non-zero):
+
+1. device     the card's name and power limit (nvidia-smi); TF32 off for
+              every comparison (matmul and cuDNN).
+2. build      nvcc builds the CUDA kernels from ``dedloc_tpu_torch/ops/csrc``
+              (timed); Triton kernels build at their first launch.
+3. kernels    every kernel of the training path against its plain PyTorch
+              version on the same inputs at the ALBERT-large slice's shapes
+              (flash [12, 512, 16, 64] bf16 with two short samples and one
+              all-padding sample; add+LN [6144, 1024] bf16), plus ragged
+              S=200 cases; the flash tolerance scales with each sample's
+              own max |ref|; device time per call (CUDA-graph replays
+              between CUDA events, median) of the kernel, the plain version
+              and, where one exists, the one PyTorch call computing the
+              same function (timed only, never used by the port).
+4. reference  the tiny config on the card (kernels) against the same
+              weights and batch on the CPU (plain versions).
+5. path       ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
+              accumulation 2, LAMB with warmup 0: 3 optimizer steps through
+              build_model / build_optimizer / synthetic_mlm_batches /
+              make_accumulate_step / make_apply_step, every launch counter
+              reset just before and checked just after; then one more step
+              under torch.profiler for the device's busy time and idle share.
+
+Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
+``{"path": ...}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bounds below are
+# arithmetic on this run's shapes, not measurements
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+FLASH_SHAPE = (12, 512, 16, 64)  # B, S, H, D of the slice
+LN_ROWS, LN_WIDTH = 12 * 512, 1024
+FLASH_SRC = "dedloc_tpu_torch/ops/csrc/flash_attention.cu"
+LN_SRC = "dedloc_tpu_torch/ops/fused_ln.py"
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int = 25, calls: int = 10) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph
+    (so host launch overhead is out of the measurement), the graph replayed
+    ``reps`` times between CUDA events after warm-up; median per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up (Triton builds, allocator) off the graph
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / calls
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, got, want, atol, rtol: float) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere; returns max abs err.
+    ``atol`` is a number or a tensor that broadcasts against ``want``."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    err = (got - want).abs()
+    worst = float(err.max())
+    if torch.is_tensor(atol):
+        atol_s = f"{float(atol.min()):.1e}..{float(atol.max()):.1e} per sample"
+    else:
+        atol_s = f"{atol:.1e}"
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        fail(f"{name}: max abs err {worst:.3e} beyond atol {atol_s} + "
+             f"rtol {rtol:.1e} * |ref|")
+    log(f"  {name}: max abs err {worst:.3e} (atol {atol_s}, rtol {rtol:.1e})")
+    return worst
+
+
+def check_per_sample(name: str, got, want, real) -> dict:
+    """check_close with atol 1e-2 x max|ref| of each sample (dim 0) and
+    rtol 1e-2. An all-padding sample's gradients are hundreds of times a
+    real sample's (p = exp(s - lse) is 1 for every key once -1e9 swallows
+    log(l) in fp32, as in the reference), so one atol for the batch would
+    leave the real samples unchecked. Returns the max abs err over all
+    samples and, over the samples with keys (``real``, bool [B]), the max
+    abs err and the max and mean |ref|."""
+    ref = want.float().abs()
+    atol = 1e-2 * ref.amax(dim=tuple(range(1, ref.dim())), keepdim=True)
+    worst = check_close(name, got, want, atol, 1e-2)
+    err = (got.float() - want.float()).abs()[real]
+    stats = dict(max_abs_err=float(err.max()), max_abs_ref=float(ref[real].max()),
+                 mean_abs_ref=float(ref[real].mean()))
+    log(f"    samples with keys: max abs err {stats['max_abs_err']:.3e}, "
+        f"max |ref| {stats['max_abs_ref']:.3e}, mean |ref| "
+        f"{stats['mean_abs_ref']:.3e}")
+    return dict(all=worst, real=stats)
+
+
+# --------------------------------------------------------------- phase 1-2
+
+
+def phase_device() -> str:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    return smi
+
+
+def phase_build() -> float:
+    from dedloc_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build("flash_attention")
+    seconds = time.perf_counter() - t0
+    log(f"[build] nvcc flash_attention.cu: {seconds:.1f} s")
+    # one line per kernel instance: registers and spills (ptxas -v)
+    name, spills = "?", ""
+    for line in _build.build_log("flash_attention").splitlines():
+        entry = re.search(r"Compiling entry function '.*?(flash_\w+_kernel)ILi(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{entry.group(2)}>"
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            log(f"  {name}: {regs} registers, {spills}")
+    return seconds
+
+
+# ----------------------------------------------------------------- phase 3
+
+
+def _flash_inputs(b, s, h, d, gen, lengths):
+    shape = (b, s, h, d)
+    q, k, v, dout = (
+        torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(4)
+    )
+    mask = torch.ones((b, s), device="cuda")
+    for i, n in enumerate(lengths):
+        mask[i, n:] = 0.0
+    bias = torch.where(mask > 0, 0.0, -1e9).to(torch.float32)
+    return q, k, v, dout, bias
+
+
+def _check_flash(tag, q, k, v, dout, bias) -> dict:
+    """Every flash kernel against its plain version; per kernel, the max abs
+    err over the batch and, per output, the samples-with-keys statistics."""
+    from dedloc_tpu_torch.ops import flash_attention as fa
+
+    real = bias.amax(dim=1) == 0  # samples with at least one key
+    out, lse = fa.flash_fwd(q, k, v, bias)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, bias)
+    o = check_per_sample(f"{tag} flash_fwd out", out, out_p, real)
+    check_close(f"{tag} flash_fwd lse", lse, lse_p, 1e-3, 1e-5)
+    # the backward kernels on identical inputs (the kernel forward's lse)
+    delta = fa.softmax_delta(out, dout)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
+    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, bias, lse, dout, delta)
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, bias, lse, dout, delta)
+    gk = check_per_sample(f"{tag} flash_bwd dk", dk, dk_p, real)
+    gv = check_per_sample(f"{tag} flash_bwd dv", dv, dv_p, real)
+    gq = check_per_sample(f"{tag} flash_bwd dq", dq, dq_p, real)
+    # the autograd op end to end, with a fixed random cotangent
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, bias),
+                                (qr, kr, vr), dout)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, (dq_p, dk_p, dv_p)):
+        check_per_sample(f"{tag} autograd {name}", g, ref, real)
+    torch.cuda.synchronize()
+    return {
+        "flash_fwd": (o["all"], {"out": o["real"]}),
+        "flash_bwd_dkdv": (max(gk["all"], gv["all"]),
+                           {"dk": gk["real"], "dv": gv["real"]}),
+        "flash_bwd_dq": (gq["all"], {"dq": gq["real"]}),
+    }
+
+
+def phase_kernels(seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    results = {}
+
+    # flash attention at the slice's shape: samples 0 and 1 end early,
+    # sample 2 is all padding (uniform average of V, as the TPU kernel)
+    b, s, h, d = FLASH_SHAPE
+    q, k, v, dout, bias = _flash_inputs(b, s, h, d, gen, [300, 437, 0])
+    log("[kernels] flash attention at [12, 512, 16, 64] bf16")
+    errs = _check_flash("S=512", q, k, v, dout, bias)
+    out, lse = fa.flash_fwd(q, k, v, bias)
+    delta = fa.softmax_delta(out, dout)
+    # the library yardstick: SDPA with the same float mask ([B, H, S, D] views)
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, dout))
+    mask = bias.to(torch.bfloat16)[:, None, None, :]
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    lib_fwd_bwd = lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask),
+        (qg, kg, vg), doh)
+    lib_fwd_ms = cuda_ms(lib_fwd)
+    # its backward alone: forward+backward captured together, less the forward
+    lib_bwd_ms = cuda_ms(lib_fwd_bwd) - lib_fwd_ms
+    io = b * s * h * d * 2  # one bf16 [B, S, H, D] tensor
+    rows = b * h * s * 4  # one fp32 [B*H, S] row tensor (lse, delta)
+    mm = 2 * b * h * s * s * d  # one S x S x D matmul, in operations
+    tol = "atol 1e-2 max|ref[b]| for each sample b + rtol 1e-2 |ref|"
+    # the replaced fused backward reads q, k, v, dO, lse, delta and the bias,
+    # writes dq, dk, dv, and needs 5 products; the split pair recomputes
+    # s and dp, so each of its bounds counts its own 4 or 3
+    fused_bwd_bound_ms = bound(7 * io + 2 * rows + b * s * 4, 5 * mm,
+                               BF16_FLOPS)[0]
+    results["flash_fwd"] = dict(
+        route="cuda", source=FLASH_SRC,
+        replaces="dedloc_tpu/ops/flash_attention.py:61",
+        err=errs["flash_fwd"], tol=tol,
+        ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, bias)),
+        plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, bias)),
+        bound=bound(4 * io + b * s * 4 + rows, 2 * mm, BF16_FLOPS),
+        library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
+    )
+    results["flash_bwd_dkdv"] = dict(
+        route="cuda", source=FLASH_SRC,
+        replaces="dedloc_tpu/ops/flash_attention.py:262",
+        err=errs["flash_bwd_dkdv"], tol=tol,
+        ms=cuda_ms(lambda: fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)),
+        plain_ms=cuda_ms(
+            lambda: fa.flash_bwd_dkdv_plain(q, k, v, bias, lse, dout, delta)),
+        bound=bound(6 * io + 2 * rows + b * s * 4, 4 * mm, BF16_FLOPS),
+        fused_bwd_bound_ms=fused_bwd_bound_ms,
+        library_ms=lib_bwd_ms,
+        library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)",
+    )
+    results["flash_bwd_dq"] = dict(
+        route="cuda", source=FLASH_SRC,
+        replaces="dedloc_tpu/ops/flash_attention.py:262",
+        err=errs["flash_bwd_dq"], tol=tol,
+        ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta)),
+        plain_ms=cuda_ms(
+            lambda: fa.flash_bwd_dq_plain(q, k, v, bias, lse, dout, delta)),
+        bound=bound(5 * io + 2 * rows + b * s * 4, 3 * mm, BF16_FLOPS),
+        fused_bwd_bound_ms=fused_bwd_bound_ms,
+        library_ms=lib_bwd_ms,
+        library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)",
+    )
+    del q, k, v, dout, out, lse, delta, qg, kg, vg
+
+    log("[kernels] flash attention ragged S=200 (D=64 and D=128)")
+    _check_flash("S=200 D=64", *_flash_inputs(2, 200, 16, 64, gen, [150, 0]))
+    _check_flash("S=200 D=128", *_flash_inputs(2, 200, 8, 128, gen, [77]))
+
+    # fused add+LayerNorm at the slice's [B*S, hidden]
+    log("[kernels] fused add+LN at [6144, 1024] bf16")
+    n, w = LN_ROWS, LN_WIDTH
+    x, r, dy = (torch.randn((n, w), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(3))
+    gamma = 1.0 + 0.1 * torch.randn(w, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(w, generator=gen, device="cuda")
+    eps = 1e-12
+    y, xhat, rstd = fl.ln_fwd(x, r, gamma, beta, eps)
+    y_p, xhat_p, rstd_p = fl.ln_fwd_plain(x, r, gamma, beta, eps)
+    y_only, _, _ = fl.ln_fwd(x, r, gamma, beta, eps, with_residuals=False)
+    fwd_err = max(
+        check_close("ln_fwd y", y, y_p, 1e-2, 1e-2),
+        check_close("ln_fwd xhat", xhat, xhat_p, 1e-2, 1e-2),
+        check_close("ln_fwd y-only", y_only, y_p, 1e-2, 1e-2),
+    )
+    check_close("ln_fwd rstd", rstd, rstd_p, 0.0, 1e-5)
+    da, dgamma, dbeta = fl.ln_bwd(xhat, rstd, gamma, dy)
+    da_p, dgamma_p, dbeta_p = fl.ln_bwd_plain(xhat, rstd, gamma, dy)
+    bwd_err = max(
+        check_close("ln_bwd da", da, da_p, 1e-2, 1e-2),
+        check_close("ln_bwd dgamma", dgamma, dgamma_p, 1e-2, 1e-4),
+        check_close("ln_bwd dbeta", dbeta, dbeta_p, 1e-2, 1e-4),
+    )
+    log("[kernels] fused add+LN ragged width 1000")
+    xs, rs = x[:256, :1000].contiguous(), r[:256, :1000].contiguous()
+    ys, xhs, rss = fl.ln_fwd(xs, rs, gamma[:1000].contiguous(),
+                             beta[:1000].contiguous(), eps)
+    check_close("ln_fwd y (H=1000)", ys, fl.ln_fwd_plain(
+        xs, rs, gamma[:1000], beta[:1000], eps)[0], 1e-2, 1e-2)
+    dys = dy[:256, :1000].contiguous()
+    check_close("ln_bwd da (H=1000)", fl.ln_bwd(xhs, rss, gamma[:1000].contiguous(), dys)[0],
+                fl.ln_bwd_plain(xhs, rss, gamma[:1000], dys)[0], 1e-2, 1e-2)
+    row = n * w * 2
+    results["ln_fwd"] = dict(
+        route="triton", source=LN_SRC,
+        replaces="dedloc_tpu/ops/fused_ln.py:55",
+        err=(fwd_err, None), tol="atol 1e-2 + rtol 1e-2 |ref|",
+        ms=cuda_ms(lambda: fl.ln_fwd(x, r, gamma, beta, eps)),
+        plain_ms=cuda_ms(lambda: fl.ln_fwd_plain(x, r, gamma, beta, eps)),
+        bound=bound(4 * row + 2 * w * 4 + n * 4, 10 * n * w, FP32_FLOPS),
+        library_ms=None, library=None,
+    )
+    results["ln_bwd"] = dict(
+        route="triton", source=LN_SRC,
+        replaces="dedloc_tpu/ops/fused_ln.py:110",
+        err=(bwd_err, None),
+        tol="atol 1e-2 + rtol 1e-2 |ref| (dgamma, dbeta rtol 1e-4)",
+        ms=cuda_ms(lambda: fl.ln_bwd(xhat, rstd, gamma, dy)),
+        plain_ms=cuda_ms(lambda: fl.ln_bwd_plain(xhat, rstd, gamma, dy)),
+        bound=bound(3 * row + n * 4 + 3 * w * 4, 12 * n * w, FP32_FLOPS),
+        library_ms=None, library=None,
+    )
+    torch.cuda.synchronize()
+    return results
+
+
+# ----------------------------------------------------------------- phase 4
+
+
+def phase_reference(seed: int) -> None:
+    """Tiny config, same weights and batch: card (kernels) vs CPU (plain)."""
+    from dedloc_tpu_torch.roles.common import (
+        build_loss_fn, build_model, drop_collator_keys, synthetic_mlm_batches,
+    )
+
+    log("[reference] tiny ALBERT (flash + fused_ln, bf16): card vs CPU")
+    results = {}
+    batch_np = None
+    for device in ("cuda", "cpu"):
+        cfg, model = build_model("tiny", remat_policy="fused_ln",
+                                 attention_impl="flash", device=device,
+                                 seed=seed)
+        if batch_np is None:
+            batch_np = next(synthetic_mlm_batches(cfg, 4, 64, seed))
+            batch_np["attention_mask"][1, 40:] = 0  # one padded sample
+        params = dict(model.named_parameters())
+        loss, _ = build_loss_fn(model)(params, drop_collator_keys(batch_np, device))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        results[device] = (float(loss.detach()), dict(zip(params, grads)))
+    (loss_c, grads_c), (loss_p, grads_p) = results["cuda"], results["cpu"]
+    log(f"  loss card {loss_c:.6f} cpu {loss_p:.6f}")
+    if not math.isfinite(loss_c) or abs(loss_c - loss_p) > 2e-2:
+        fail(f"tiny loss card {loss_c} vs cpu {loss_p} (tol 2e-2)")
+    # per leaf: |card - cpu| <= 5e-2 (|cpu| + 0.02 x RMS leaf norm). The
+    # floor covers leaves whose true gradient is ~0 (the key bias: softmax
+    # ignores a per-row shift), where only rounding noise is left to compare
+    rms = math.sqrt(sum(float(g.float().norm()) ** 2 for g in grads_p.values())
+                    / len(grads_p))
+    worst = 0.0
+    for name, g in grads_c.items():
+        ref = float(grads_p[name].float().norm())
+        rel = float((g.float().cpu() - grads_p[name].float()).norm()) / (
+            ref + 0.02 * rms)
+        worst = max(worst, rel)
+        if not rel <= 5e-2:
+            fail(f"tiny grad {name}: |card - cpu| / (|cpu| + 0.02 rms) = "
+                 f"{rel:.3e} > 5e-2 (|cpu| {ref:.3e}, rms {rms:.3e})")
+    log(f"  {len(grads_c)} grads: worst |card - cpu| / (|cpu| + 0.02 rms) "
+        f"{worst:.3e} (tol 5e-2)")
+
+
+# ----------------------------------------------------------------- phase 5
+
+
+def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
+               seq: int = 512) -> dict:
+    from dedloc_tpu_torch.core.config import TrainingArguments
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState, make_accumulate_step, make_apply_step, zeros_like_grads,
+    )
+    from dedloc_tpu_torch.roles.common import (
+        build_loss_fn, build_model, build_optimizer, drop_collator_keys,
+        synthetic_mlm_batches,
+    )
+
+    log("[path] ALBERT-large, 12 x 512, accumulation 2, 3 LAMB steps")
+    args = TrainingArguments(model_size="large", remat_policy="fused_ln",
+                             attention_impl="flash", warmup_steps=0,
+                             per_device_batch_size=micro_batch,
+                             gradient_accumulation_steps=2, seed=seed)
+    cfg, model = build_model(args.model_size, remat_policy=args.remat_policy,
+                             attention_impl=args.attention_impl,
+                             device="cuda", seed=seed)
+    if not (cfg.attention_impl == "flash" and cfg.fused_ln
+            and cfg.hidden_size == 1024 and cfg.num_hidden_layers == 24
+            and cfg.num_attention_heads == 16):
+        fail(f"unexpected config {cfg}")
+    tx = build_optimizer(args)
+    accumulate = make_accumulate_step(build_loss_fn(model))
+    apply = make_apply_step(tx)
+    params = dict(model.named_parameters())
+    state = TrainState.create(params, tx)
+    batches = synthetic_mlm_batches(cfg, micro_batch, seq, seed)
+    wrappers = fa.WRAPPERS + fl.WRAPPERS
+    expected = {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
+                "ln_fwd": 96, "ln_bwd": 96}  # per optimizer step, accum 2
+
+    losses = []
+
+    def optimizer_step() -> None:
+        nonlocal state
+        grad_acc, n_acc = zeros_like_grads(params), 0
+        for _ in range(args.gradient_accumulation_steps):
+            batch = drop_collator_keys(next(batches), device="cuda")
+            grad_acc, n_acc, metrics = accumulate(params, grad_acc, n_acc, batch)
+            losses.append(metrics["loss"])
+        state = apply(state, {k: g / n_acc for k, g in grad_acc.items()})
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    step_s, per_step = [], []
+    for _ in range(steps):
+        before = {w.__name__: w.launches for w in wrappers}
+        t0 = time.perf_counter()
+        optimizer_step()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({w.__name__: w.launches - before[w.__name__]
+                         for w in wrappers})
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    # one more step, traced, for where its time goes (not in the counts)
+    profile = profile_step(optimizer_step)
+
+    losses = [float(x) for x in losses]
+    log(f"  losses {losses}")
+    log(f"  launches per step {per_step}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss {losses}")
+    at_init = math.log(cfg.vocab_size) + math.log(2)
+    if abs(losses[0] - at_init) > 0.5:
+        fail(f"first loss {losses[0]:.4f} not within 0.5 of {at_init:.4f}")
+    for counts in per_step:
+        if counts != expected:
+            fail(f"launches per step {counts} != {expected}")
+    if not all(torch.isfinite(p).all() for p in params.values()):
+        fail("non-finite parameters after the steps")
+    if state.step != steps + 1:
+        fail(f"state.step {state.step} != {steps + 1}")
+    timed = step_s[1:]  # the first step pays cuBLAS/allocator warm-up
+    ms = statistics.median(timed) * 1e3
+    samples = args.gradient_accumulation_steps * micro_batch
+    return dict(
+        steps=steps, micro_batch=micro_batch, seq_length=seq,
+        grad_accum=args.gradient_accumulation_steps, losses=losses,
+        first_loss_at_init=at_init, step_ms=[t * 1e3 for t in step_s],
+        ms_per_step=ms, samples_per_s=samples / (ms / 1e3),
+        max_memory_allocated=peak, launches=launches, profile=profile,
+    )
+
+
+def _kind(name: str) -> str:
+    if "flash_" in name or "_ln_" in name:
+        return "port kernels"
+    if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", name, re.IGNORECASE):
+        return "matmul"
+    return "other"
+
+
+def profile_step(step) -> dict:
+    """Run ``step`` once under torch.profiler (device activity only) and
+    return its host wall time, the device's busy time (the union of its
+    kernel, memcpy and memset intervals), the idle share 1 - busy / wall,
+    and device time by kind and by the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dedloc_tpu_torch.ops import _build
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = _build.BUILD_DIR / "path_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        fail("the profiler saw no device activity in the traced step")
+    busy_us, end = 0.0, -math.inf
+    for start, dur in sorted((e["ts"], e["dur"]) for e in events):
+        busy_us += max(0.0, start + dur - max(start, end))
+        end = max(end, start + dur)
+    by_kind, by_name = {}, {}
+    for e in events:
+        kind = _kind(e["name"]) if e["cat"] == "kernel" else "copy/memset"
+        by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
+        ms_n = by_name.setdefault(e["name"][:100], [0.0, 0])
+        ms_n[0] += e["dur"] / 1e3
+        ms_n[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    prof_out = dict(
+        wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+        idle_share=1.0 - busy_us / 1e3 / wall_ms, device_ops=len(events),
+        by_kind_ms=by_kind, top=[[n, ms, c] for n, (ms, c) in top],
+    )
+    log(f"  traced step: {json.dumps(prof_out)}")
+    return prof_out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import dedloc_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    smi = phase_device()
+    build_s = phase_build()
+    kernels = phase_kernels(args.seed)
+    phase_reference(args.seed)
+    path = phase_path(args.seed)
+
+    rows = []
+    for name, k in kernels.items():
+        bound_ms, bound_by = k.pop("bound")
+        max_abs_err, samples_with_keys = k.pop("err")
+        rows.append(dict(
+            name=name, route=k.pop("route"), source=k.pop("source"),
+            replaces=k.pop("replaces"), launches=path["launches"][name],
+            max_abs_err=max_abs_err, ms=k.pop("ms"), plain_ms=k.pop("plain_ms"),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=k.pop("library_ms"), **k,
+            samples_with_keys=samples_with_keys,
+        ))
+    print(json.dumps({"build": {"nvcc_seconds": build_s}}))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"path": path}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,396 @@
+"""ALBERT for MLM + sentence-order-prediction pretraining, in PyTorch.
+
+Port of ``dedloc_tpu/models/albert.py``. The modules carry the JAX model's
+parameter names (``models/convert.py`` maps them both ways), and the numerics
+follow it:
+
+- matmuls take bf16 inputs (``cfg.dtype``) with fp32 params cast at use;
+  embedding, LayerNorm and softmax statistics are fp32;
+- the residual add before each LayerNorm is fp32 (``AddLayerNorm``), through
+  the fused add+LayerNorm kernel when ``cfg.fused_ln``;
+- ``attention_impl="flash"`` runs the flash-attention kernel; ``"dense"``
+  materialises the fp32 scores;
+- the encoder applies ONE shared block ``num_hidden_layers`` times;
+- the mask is an additive ``-1e9`` key bias; the tied MLM decoder and the
+  SOP head return fp32 logits.
+
+Not in this slice (they raise ``NotImplementedError``): ``blockwise`` and
+``ring`` attention, ``pipe_mesh``, ``moe_experts > 0``, rematerialisation
+(``remat=True``; the port keeps every activation), and dropout in training
+mode.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dedloc_tpu_torch.ops.flash_attention import flash_attention
+from dedloc_tpu_torch.ops.fused_ln import ln_residual, ln_residual_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class AlbertConfig:
+    """ALBERT-large defaults (the reference's canonical workload config)."""
+
+    vocab_size: int = 30000
+    embedding_size: int = 128
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.0
+    attention_dropout_prob: float = 0.0
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    pad_token_id: int = 0
+    dtype: Any = torch.bfloat16  # compute dtype; params stay fp32
+    # rematerialisation waits for a later slice: the port keeps every
+    # activation, so the default is off and True raises
+    remat: bool = False
+    # the policy name still selects the fused add+LN kernel
+    # (``fused_ln_for_policy``), as the JAX builders do
+    remat_policy: str = "nothing"
+    fused_ln: bool = False
+    attention_impl: str = "dense"  # dense | flash (blockwise, ring: later)
+    # later slices (set here, they raise): pipeline stages, Switch-MoE FFN
+    pipe_mesh: Any = None
+    moe_experts: int = 0
+
+    @staticmethod
+    def named(model_size: str):
+        ctors = {"tiny": AlbertConfig.tiny, "large": AlbertConfig.large}
+        if model_size not in ctors:
+            raise ValueError(
+                f"unknown model_size {model_size!r} "
+                f"(expected one of {sorted(ctors)})"
+            )
+        return ctors[model_size]
+
+    @staticmethod
+    def large(**overrides) -> "AlbertConfig":
+        return AlbertConfig(**overrides)
+
+    @staticmethod
+    def tiny(**overrides) -> "AlbertConfig":
+        """Test-sized config."""
+        base = dict(
+            vocab_size=512,
+            embedding_size=16,
+            hidden_size=32,
+            num_hidden_layers=2,
+            num_attention_heads=2,
+            intermediate_size=64,
+            max_position_embeddings=64,
+        )
+        base.update(overrides)
+        return AlbertConfig(**base)
+
+
+#: The policy names that engage the fused add+LN kernel.
+FUSED_LN_POLICIES = frozenset({"fused_ln", "fused_ln_gelu"})
+
+
+def fused_ln_for_policy(remat_policy: str) -> bool:
+    return remat_policy in FUSED_LN_POLICIES
+
+
+def _check_supported(cfg: AlbertConfig) -> None:
+    later = []
+    if cfg.attention_impl in ("blockwise", "ring"):
+        later.append(f"attention_impl={cfg.attention_impl!r}")
+    elif cfg.attention_impl not in ("dense", "flash"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    if cfg.pipe_mesh is not None:
+        later.append("pipe_mesh")
+    if cfg.moe_experts > 0:
+        later.append("moe_experts > 0")
+    if cfg.remat:
+        later.append("remat")
+    if later:
+        raise NotImplementedError(
+            f"{', '.join(later)}: not ported yet (later slices of the port)"
+        )
+
+
+def _no_training_dropout(rate: float, deterministic: bool, what: str) -> None:
+    if rate > 0.0 and not deterministic:
+        raise NotImplementedError(
+            f"{what} dropout in training mode is not ported (the reference "
+            "recipe uses 0.0)"
+        )
+
+
+class Dense(nn.Linear):
+    """``nn.Dense(dtype=cfg.dtype)``: input, weight and bias cast to the
+    compute dtype (the weight is stored fp32, ``[out, in]``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """``nn.LayerNorm(dtype=float32)`` as flax computes it: fp32, with the
+    variance taken as ``E[x^2] - E[x]^2`` (flax's fast variance)."""
+
+    def __init__(self, size: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(size))
+        self.bias = nn.Parameter(torch.zeros(size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class AddLayerNorm(nn.Module):
+    """``LayerNorm(x + residual)`` with the residual add in fp32; one fused
+    kernel pass each way with ``cfg.fused_ln``."""
+
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.weight = nn.Parameter(torch.ones(cfg.hidden_size))
+        self.bias = nn.Parameter(torch.zeros(cfg.hidden_size))
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.fused_ln:
+            y = ln_residual(x, residual, self.weight, self.bias,
+                            eps=cfg.layer_norm_eps)
+        else:
+            y = ln_residual_reference(x.float(), residual.float(), self.weight,
+                                      self.bias, eps=cfg.layer_norm_eps)
+        return y.to(cfg.dtype)
+
+
+class AlbertSelfAttention(nn.Module):
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.query = Dense(h, h, cfg.dtype)
+        self.key = Dense(h, h, cfg.dtype)
+        self.value = Dense(h, h, cfg.dtype)
+        self.dense = Dense(h, h, cfg.dtype)
+        self.layernorm = AddLayerNorm(cfg)
+
+    def forward(self, hidden, kv_bias, deterministic: bool = True):
+        cfg = self.cfg
+        b, s, h = hidden.shape
+        nh = cfg.num_attention_heads
+        hd = h // nh
+        q = self.query(hidden).reshape(b, s, nh, hd)
+        k = self.key(hidden).reshape(b, s, nh, hd)
+        v = self.value(hidden).reshape(b, s, nh, hd)
+        if cfg.attention_impl == "flash":
+            if cfg.attention_dropout_prob > 0.0 and not deterministic:
+                raise ValueError(
+                    "attention_impl='flash' does not support attention "
+                    "dropout in training (the reference recipe uses 0.0); "
+                    "use attention_impl='dense' or attention_dropout_prob=0"
+                )
+            ctx = flash_attention(q, k, v, kv_bias).reshape(b, s, h)
+        else:
+            # fp32 logits + softmax; bf16 probabilities and context
+            _no_training_dropout(cfg.attention_dropout_prob, deterministic,
+                                 "attention")
+            scale = 1.0 / math.sqrt(hd)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            logits = logits * scale + kv_bias[:, None, None, :]
+            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
+        out = self.dense(ctx)
+        _no_training_dropout(cfg.hidden_dropout_prob, deterministic, "hidden")
+        return self.layernorm(out, hidden)
+
+
+class AlbertLayer(nn.Module):
+    """One shared transformer block (attention + tanh-GELU FFN, post-LN)."""
+
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.attention = AlbertSelfAttention(cfg)
+        self.ffn = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
+        self.ffn_output = Dense(cfg.intermediate_size, cfg.hidden_size,
+                                cfg.dtype)
+        self.layernorm = AddLayerNorm(cfg)
+
+    def forward(self, hidden, kv_bias, deterministic: bool = True):
+        hidden = self.attention(hidden, kv_bias, deterministic)
+        ffn = F.gelu(self.ffn(hidden), approximate="tanh")
+        ffn = self.ffn_output(ffn)
+        _no_training_dropout(self.cfg.hidden_dropout_prob, deterministic,
+                             "hidden")
+        return self.layernorm(ffn, hidden)
+
+
+class _SharedLayer(nn.Module):
+    """Holds the one block under the JAX path ``encoder/layer/block``."""
+
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.block = AlbertLayer(cfg)
+
+
+class AlbertEncoder(nn.Module):
+    """ALBERT's cross-layer sharing: one block applied num_hidden_layers
+    times (the JAX package's ``nn.scan`` with broadcast params)."""
+
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = _SharedLayer(cfg)
+
+    def forward(self, hidden, kv_bias, deterministic: bool = True):
+        for _ in range(self.cfg.num_hidden_layers):
+            hidden = self.layer.block(hidden, kv_bias, deterministic)
+        return hidden
+
+
+class AlbertModel(nn.Module):
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        e = cfg.embedding_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, e)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, e)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, e)
+        self.embeddings_layernorm = LayerNorm(e, cfg.layer_norm_eps)
+        self.embedding_projection = Dense(e, cfg.hidden_size, cfg.dtype)
+        self.encoder = AlbertEncoder(cfg)
+        self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True):
+        cfg = self.cfg
+        b, s = input_ids.shape
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        positions = torch.arange(s, device=input_ids.device)
+        emb = (self.word_embeddings(input_ids)
+               + self.position_embeddings(positions)[None]
+               + self.token_type_embeddings(token_type_ids))
+        emb = self.embeddings_layernorm(emb)
+        _no_training_dropout(cfg.hidden_dropout_prob, deterministic, "hidden")
+        hidden = self.embedding_projection(emb)  # factorized: E -> hidden
+        kv_bias = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
+        hidden = self.encoder(hidden, kv_bias, deterministic)
+        pooled = torch.tanh(self.pooler(hidden[:, 0]))
+        return hidden, pooled
+
+
+class AlbertForPreTraining(nn.Module):
+    """ALBERT with MLM + sentence-order-prediction heads; the MLM decoder is
+    tied to the word-embedding table."""
+
+    def __init__(self, cfg: AlbertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.albert = AlbertModel(cfg)
+        self.mlm_dense = Dense(cfg.hidden_size, cfg.embedding_size, cfg.dtype)
+        self.mlm_layernorm = LayerNorm(cfg.embedding_size, cfg.layer_norm_eps)
+        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.sop_classifier = Dense(cfg.hidden_size, 2, cfg.dtype)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True,
+                mlm_positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``mlm_positions`` [B, P]: the MLM head runs only on those gathered
+        positions (logits [B, P, vocab]); None covers every position."""
+        cfg = self.cfg
+        hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
+                                     deterministic)
+        if mlm_positions is not None:
+            idx = mlm_positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
+            hidden = torch.gather(hidden, 1, idx)
+        x = F.gelu(self.mlm_dense(hidden), approximate="tanh")
+        x = self.mlm_layernorm(x).to(cfg.dtype)
+        table = self.albert.word_embeddings.weight.to(cfg.dtype)
+        # bf16 operands, fp32 accumulation (preferred_element_type=f32)
+        mlm_logits = x.float() @ table.float().t() + self.mlm_bias
+        sop_logits = self.sop_classifier(pooled).float()
+        return mlm_logits, sop_logits
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX initialisers: normal(initializer_range) for dense kernels and
+    embeddings, zeros for biases, ones/zeros for LayerNorm. Draws on the
+    given CPU generator, so a seed gives the same weights on any device."""
+    std = model.cfg.initializer_range
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Embedding)):
+            w = torch.empty(module.weight.shape).normal_(0.0, std,
+                                                         generator=generator)
+            module.weight.copy_(w)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+        elif isinstance(module, (LayerNorm, AddLayerNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    model.mlm_bias.zero_()
+    return model
+
+
+# ------------------------------------------------------------------- losses
+
+
+def _masked_cross_entropy(logits, labels, mask):
+    """Masked-mean CE + accuracy over positions where ``mask`` is 1."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / denom
+    hits = (logits.argmax(-1) == labels.long()).float()
+    acc = (hits * mask).sum() / denom
+    return loss, acc, denom
+
+
+def _sop_loss(sop_logits, sop_labels):
+    logp = torch.log_softmax(sop_logits.float(), dim=-1)
+    return -logp.gather(-1, sop_labels.long()[:, None])[:, 0].mean()
+
+
+def albert_pretraining_loss(mlm_logits, sop_logits, mlm_labels, sop_labels,
+                            ignore_index: int = -100):
+    """MLM + SOP cross-entropy, masked-mean over labelled positions."""
+    mask = (mlm_labels != ignore_index).float()
+    safe = torch.where(mlm_labels == ignore_index,
+                       torch.zeros_like(mlm_labels), mlm_labels)
+    mlm_loss, mlm_acc, _ = _masked_cross_entropy(mlm_logits, safe, mask)
+    sop_loss = _sop_loss(sop_logits, sop_labels)
+    loss = mlm_loss + sop_loss
+    return loss, {"loss": loss, "mlm_loss": mlm_loss, "sop_loss": sop_loss,
+                  "mlm_acc": mlm_acc}
+
+
+def albert_pretraining_loss_gathered(mlm_logits, sop_logits, mlm_label_ids,
+                                     mlm_weights, sop_labels):
+    """Masked-position variant: logits at the gathered positions, weights
+    1.0 for a real prediction and 0.0 for padding."""
+    w = mlm_weights.float()
+    mlm_loss, mlm_acc, _ = _masked_cross_entropy(mlm_logits, mlm_label_ids, w)
+    sop_loss = _sop_loss(sop_logits, sop_labels)
+    loss = mlm_loss + sop_loss
+    return loss, {"loss": loss, "mlm_loss": mlm_loss, "sop_loss": sop_loss,
+                  "mlm_acc": mlm_acc}

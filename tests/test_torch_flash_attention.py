@@ -1,0 +1,105 @@
+"""The port's flash attention (plain versions on the CPU) against the JAX
+package's ``flash_attention`` (its Pallas kernels in interpret mode): forward
+and q/k/v gradients from the same numpy inputs, through both JAX backward
+paths (the single-tile fused kernel and the split dq / dk-dv kernels)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dedloc_tpu.ops.flash_attention import flash_attention as jax_flash
+from dedloc_tpu_torch.ops import flash_attention as port
+
+TOL = dict(atol=2e-5, rtol=2e-5)  # fp32, as tests/test_flash_attention.py
+
+
+def _inputs(seed, b=2, s=128, h=2, d=32, mask="none"):
+    rng = np.random.default_rng(seed)
+    shape = (b, s, h, d)
+    arrs = {n: rng.standard_normal(shape).astype(np.float32)
+            for n in ("q", "k", "v", "w")}
+    keep = np.ones((b, s), np.float32)
+    if mask == "padding":
+        keep[0, s - 38:] = 0.0  # a short sample
+        keep[1, :] = 0.0  # an all-padding sample: every key masked
+    arrs["bias"] = np.where(keep > 0, 0.0, -1e9).astype(np.float32)
+    return arrs
+
+
+def _jax(inp, block_q, block_k):
+    q, k, v, bias, w = (jnp.asarray(inp[n]) for n in ("q", "k", "v", "bias", "w"))
+
+    out, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, bias, block_q=block_q,
+                                  block_k=block_k), q, k, v)
+    return np.asarray(out), [np.asarray(g) for g in vjp(w)]
+
+
+def _torch(inp):
+    q, k, v = (torch.tensor(inp[n]).requires_grad_() for n in ("q", "k", "v"))
+    out = port.flash_attention(q, k, v, torch.tensor(inp["bias"]))
+    (out * torch.tensor(inp["w"])).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize(
+    "s,block_q,block_k,mask",
+    [
+        # one tile covers the sequence: the fused single-tile backward
+        (128, 128, 128, "none"),
+        (128, 128, 128, "padding"),
+        # the same path at the blocks of tests/test_flash_attention.py
+        (64, 64, 64, "padding"),
+        # split dq / dk-dv backward, online softmax over several tiles
+        (128, 32, 16, "none"),
+        (128, 32, 16, "padding"),
+    ],
+)
+def test_matches_jax_forward_and_grads(s, block_q, block_k, mask):
+    inp = _inputs(0, s=s, mask=mask)
+    out_j, g_j = _jax(inp, block_q, block_k)
+    out_t, g_t = _torch(inp)
+    np.testing.assert_allclose(out_t, out_j, **TOL, err_msg="out")
+    for a, b, name in zip(g_t, g_j, "qkv"):
+        np.testing.assert_allclose(a, b, **TOL, err_msg=f"d{name}")
+
+
+def test_all_masked_sample_averages_v_uniformly():
+    """With the finite -1e9 bias and no -inf special case, a sample whose
+    keys are all masked attends uniformly (as the TPU kernel does)."""
+    inp = _inputs(1, mask="padding")
+    out, _ = port.flash_fwd(*(torch.tensor(inp[n]) for n in ("q", "k", "v", "bias")))
+    uniform = inp["v"][1].mean(axis=0, keepdims=True)
+    np.testing.assert_allclose(out[1].numpy(), np.broadcast_to(uniform, out[1].shape),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_lse_matches_dense_logsumexp():
+    inp = _inputs(2, s=64, mask="padding")
+    q, k, v, bias = (torch.tensor(inp[n]) for n in ("q", "k", "v", "bias"))
+    _, lse = port.flash_fwd(q, k, v, bias)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    ref = torch.logsumexp(s + bias[:, None, None, :], dim=-1)
+    torch.testing.assert_close(lse, ref.reshape(-1, 64), atol=1e-5, rtol=1e-5)
+
+
+def test_bfloat16_forward_matches_jax():
+    inp = _inputs(3, mask="padding")
+    q, k, v = (jnp.asarray(inp[n], jnp.bfloat16) for n in ("q", "k", "v"))
+    out_j = jax_flash(q, k, v, jnp.asarray(inp["bias"]), block_q=128, block_k=128)
+    out_t = port.flash_attention(
+        *(torch.tensor(inp[n]).bfloat16() for n in ("q", "k", "v")),
+        torch.tensor(inp["bias"]))
+    assert out_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j.astype(jnp.float32)),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_bias_gets_a_zero_gradient():
+    inp = _inputs(4, s=16)
+    q, k, v = (torch.tensor(inp[n]) for n in ("q", "k", "v"))
+    bias = torch.tensor(inp["bias"]).requires_grad_()
+    port.flash_attention(q, k, v, bias).sum().backward()
+    assert bias.grad is not None and not bias.grad.any()

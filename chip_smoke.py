@@ -5,35 +5,49 @@
 
 Phases (any failure exits non-zero):
 
-1. device     the card's name and power limit (nvidia-smi); TF32 off for
-              every comparison (matmul and cuDNN).
+1. device     the card's name, power limit and maximum SM clock
+              (nvidia-smi); TF32 off for every comparison (matmul and cuDNN).
 2. build      nvcc builds the CUDA kernels from ``dedloc_tpu_torch/ops/csrc``
               (timed); Triton kernels build at their first launch.
-3. kernels    every kernel of the training path against its plain PyTorch
-              version on the same inputs at the ALBERT-large slice's shapes
-              (flash [12, 512, 16, 64] bf16 with two short samples and one
-              all-padding sample; add+LN [6144, 1024] bf16), plus ragged
-              S=200 cases; the flash tolerance scales with each sample's
-              own max |ref|; device time per call (CUDA-graph replays
+3. kernels    every kernel of the training paths against its plain PyTorch
+              version on the same inputs at the paths' shapes: flash
+              [12, 512, 16, 64] bf16 with two short samples and one
+              all-padding sample, and flash [2, 16384, 16, 64] bf16 (one
+              sample with every key, one with keys from 12,288 on masked;
+              its plain versions run one head at a time: [B, H, S, S] fp32
+              is 17 GB per tensor); add+LN [6144, 1024] bf16; plus ragged
+              S=200 cases. The flash tolerance scales with each sample's
+              own max |ref|. Device time per call (CUDA-graph replays
               between CUDA events, median) of the kernel, the plain version
               and, where one exists, the one PyTorch call computing the
               same function (timed only, never used by the port).
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
 5. path       ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
-              accumulation 2, LAMB with warmup 0: 3 optimizer steps through
-              build_model / build_optimizer / synthetic_mlm_batches /
-              make_accumulate_step / make_apply_step, every launch counter
-              reset just before and checked just after; then one more step
-              under torch.profiler for the device's busy time and idle share.
+              accumulation 2, LAMB with warmup 0, remat policy fused_ln:
+              3 optimizer steps through build_model / build_optimizer /
+              synthetic_mlm_batches / make_accumulate_step /
+              make_apply_step, every launch counter reset just before and
+              checked just after (48/48/48/96/96 per step); one more step
+              under torch.profiler (device busy time, idle share); then the
+              same 3 steps without remat, for time and peak memory.
+6. longctx    ALBERT-large at S=16,384 (max_position_embeddings 16,384,
+              flash, remat policy dots_no_batch_attn, as the JAX package's
+              long-context bench builds it), micro-batch 1, accumulation 2,
+              LAMB with warmup 0: 3 optimizer steps with the counters reset
+              and checked (48/48/48/0/0 per step); 2 steps without remat,
+              whose peak memory must be higher; one step under
+              torch.profiler.
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
-``{"path": ...}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+``{"path": ...}`` line, a ``{"longctx": ...}`` line, the nvidia-smi line,
+and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -50,10 +64,19 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
-FLASH_SHAPE = (12, 512, 16, 64)  # B, S, H, D of the slice
+# exp2 results per clock per SM (the special-function units, sm_90); with
+# the SM count and maximum clock read from this card it bounds the exps of
+# an attention kernel (one per score)
+MUFU_PER_CLOCK = 16
+EXP_PER_S = 0.0  # set by phase_device
+
+FLASH_SHAPE = (12, 512, 16, 64)  # B, S, H, D of the S=512 path
+LONG_SEQ = 16384
+LONG_SHAPE = (2, LONG_SEQ, 16, 64)  # the long-context path's length
 LN_ROWS, LN_WIDTH = 12 * 512, 1024
 FLASH_SRC = "dedloc_tpu_torch/ops/csrc/flash_attention.cu"
 LN_SRC = "dedloc_tpu_torch/ops/fused_ln.py"
+FLASH_PY = "dedloc_tpu/ops/flash_attention.py"
 
 
 def log(msg: str) -> None:
@@ -92,10 +115,38 @@ def cuda_ms(fn, reps: int = 25, calls: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs) / calls
 
 
-def bound(n_bytes: float, flops: float, peak_flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def event_ms(fn, reps: int = 3) -> float:
+    """Median time of one call between CUDA events (host launch overhead
+    included): for calls too large to capture in a graph."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, **ops_ms: float) -> dict:
+    """The least time the card could take: the bytes over the HBM rate, or
+    each kind of operation over its unit's peak (``ops_ms``, by unit),
+    whichever is largest."""
+    parts = {"hbm": n_bytes / HBM_BYTES_PER_S * 1e3, **ops_ms}
+    unit = max(parts, key=parts.get)
+    return dict(bound_ms=parts[unit],
+                bound_by="bytes" if unit == "hbm" else "operations",
+                binding_unit=unit, bound_parts_ms=parts)
+
+
+def attention_bound(n_bytes: float, products: int, mm: float, n_exp: float):
+    """Flash bound: bytes, ``products`` S x S x D matmuls of ``mm``
+    operations each on the bf16 tensor cores, ``n_exp`` exponentials."""
+    return bound(n_bytes, tensor_cores=products * mm / BF16_FLOPS * 1e3,
+                 mufu_exp=n_exp / EXP_PER_S * 1e3)
 
 
 def check_close(name: str, got, want, atol, rtol: float) -> float:
@@ -142,14 +193,23 @@ def check_per_sample(name: str, got, want, real) -> dict:
 # --------------------------------------------------------------- phase 1-2
 
 
-def phase_device() -> str:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    global EXP_PER_S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _smi("name,power.limit")
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = MUFU_PER_CLOCK * sms * max_mhz * 1e6
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"{sms} SMs, max SM clock {max_mhz:.0f} MHz | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     return smi
 
@@ -191,26 +251,56 @@ def _flash_inputs(b, s, h, d, gen, lengths):
     return q, k, v, dout, bias
 
 
-def _check_flash(tag, q, k, v, dout, bias) -> dict:
-    """Every flash kernel against its plain version; per kernel, the max abs
-    err over the batch and, per output, the samples-with-keys statistics."""
+def by_heads(fn, group: int, *args):
+    """A plain flash function run ``group`` heads at a time (heads are
+    independent), its results joined: [B, S, H, D] tensors along H, [B*H, S]
+    row tensors (lse, delta) by head; the [B, S] bias goes whole."""
+    b, _, h, _ = args[0].shape
+
+    def cut(t, heads):
+        if t.dim() == 4:
+            return t[:, :, heads]
+        if t.shape[0] == b * h:
+            return t.reshape(b, h, -1)[:, heads].reshape(-1, t.shape[-1])
+        return t
+
+    def join(parts):
+        if parts[0].dim() == 4:
+            return torch.cat(parts, dim=2)
+        rows = [p.reshape(b, -1, p.shape[-1]) for p in parts]
+        return torch.cat(rows, dim=1).reshape(b * h, -1)
+
+    results = [fn(*(cut(a, slice(h0, h0 + group)) for a in args))
+               for h0 in range(0, h, group)]
+    if isinstance(results[0], tuple):
+        return tuple(join(list(r)) for r in zip(*results))
+    return join(results)
+
+
+def _check_flash(tag, q, k, v, dout, bias, group=None) -> dict:
+    """Every flash kernel against its plain version (run ``group`` heads at
+    a time when given); per kernel, the max abs err over the batch and, per
+    output, the samples-with-keys statistics."""
     from dedloc_tpu_torch.ops import flash_attention as fa
 
+    plain = (lambda fn, *a: by_heads(fn, group, *a)) if group else (
+        lambda fn, *a: fn(*a))
     real = bias.amax(dim=1) == 0  # samples with at least one key
     out, lse = fa.flash_fwd(q, k, v, bias)
-    out_p, lse_p = fa.flash_fwd_plain(q, k, v, bias)
+    out_p, lse_p = plain(fa.flash_fwd_plain, q, k, v, bias)
     o = check_per_sample(f"{tag} flash_fwd out", out, out_p, real)
     check_close(f"{tag} flash_fwd lse", lse, lse_p, 1e-3, 1e-5)
+    del out_p, lse_p
     # the backward kernels on identical inputs (the kernel forward's lse)
     delta = fa.softmax_delta(out, dout)
     dk, dv = fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
-    dk_p, dv_p = fa.flash_bwd_dkdv_plain(q, k, v, bias, lse, dout, delta)
+    dk_p, dv_p = plain(fa.flash_bwd_dkdv_plain, q, k, v, bias, lse, dout, delta)
     dq = fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta)
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, bias, lse, dout, delta)
+    dq_p = plain(fa.flash_bwd_dq_plain, q, k, v, bias, lse, dout, delta)
     gk = check_per_sample(f"{tag} flash_bwd dk", dk, dk_p, real)
     gv = check_per_sample(f"{tag} flash_bwd dv", dv, dv_p, real)
     gq = check_per_sample(f"{tag} flash_bwd dq", dq, dq_p, real)
-    # the autograd op end to end, with a fixed random cotangent
+    # the autograd operator end to end, with a fixed random cotangent
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, bias),
                                 (qr, kr, vr), dout)
@@ -225,83 +315,131 @@ def _check_flash(tag, q, k, v, dout, bias) -> dict:
     }
 
 
-def phase_kernels(seed: int) -> dict:
+def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
+                group=None, sdpa_backends=None, reps=25, calls=10) -> list:
+    """The three flash kernels at ``shape``: checked against their plain
+    versions (``group`` heads at a time when given), then timed beside
+    their bounds, their plain versions and SDPA (restricted to
+    ``sdpa_backends`` when given). One row per kernel."""
     import torch.nn.functional as F
 
     from dedloc_tpu_torch.ops import flash_attention as fa
-    from dedloc_tpu_torch.ops import fused_ln as fl
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    results = {}
-
-    # flash attention at the slice's shape: samples 0 and 1 end early,
-    # sample 2 is all padding (uniform average of V, as the TPU kernel)
-    b, s, h, d = FLASH_SHAPE
-    q, k, v, dout, bias = _flash_inputs(b, s, h, d, gen, [300, 437, 0])
-    log("[kernels] flash attention at [12, 512, 16, 64] bf16")
-    errs = _check_flash("S=512", q, k, v, dout, bias)
+    b, s, h, d = shape
+    q, k, v, dout, bias = _flash_inputs(b, s, h, d, gen, lengths)
+    log(f"[kernels] flash attention at {list(shape)} bf16, keys per sample "
+        f"{lengths}, grid ({b * h}, {-(-s // 64)}) of 64-row tiles")
+    errs = _check_flash(f"S={s}", q, k, v, dout, bias, group)
     out, lse = fa.flash_fwd(q, k, v, bias)
     delta = fa.softmax_delta(out, dout)
     # the library yardstick: SDPA with the same float mask ([B, H, S, D] views)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, dout))
     mask = bias.to(torch.bfloat16)[:, None, None, :]
-    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
-    lib_fwd_bwd = lambda: torch.autograd.grad(
+
+    def sdpa(fn):
+        if sdpa_backends is None:
+            return fn()
+        from torch.nn.attention import sdpa_kernel
+        with sdpa_kernel(sdpa_backends):
+            return fn()
+
+    lib_fwd = lambda: sdpa(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    lib_fwd_bwd = lambda: sdpa(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask),
-        (qg, kg, vg), doh)
-    lib_fwd_ms = cuda_ms(lib_fwd)
-    # its backward alone: forward+backward captured together, less the forward
-    lib_bwd_ms = cuda_ms(lib_fwd_bwd) - lib_fwd_ms
+        (qg, kg, vg), doh))
+    try:  # a yardstick only: a shape SDPA refuses leaves it untimed
+        lib_fwd_ms = cuda_ms(lib_fwd, reps, calls)
+        # its backward alone: forward+backward captured together, less the
+        # forward
+        lib_bwd_ms = cuda_ms(lib_fwd_bwd, reps, calls) - lib_fwd_ms
+    except RuntimeError as e:
+        log(f"  SDPA not timed at {list(shape)}: {e}")
+        lib_fwd_ms = lib_bwd_ms = None
+    if group:  # the plain versions one head group at a time, between events
+        plain_ms = lambda fn, *a: event_ms(lambda: by_heads(fn, group, *a))
+        plain_timing = f"CUDA events around the loop over {h // group} head groups"
+    else:
+        plain_ms = lambda fn, *a: cuda_ms(lambda: fn(*a), reps, calls)
+        plain_timing = "CUDA graph"
     io = b * s * h * d * 2  # one bf16 [B, S, H, D] tensor
     rows = b * h * s * 4  # one fp32 [B*H, S] row tensor (lse, delta)
     mm = 2 * b * h * s * s * d  # one S x S x D matmul, in operations
+    n_exp = b * h * s * s  # one exp per score, in every kernel
     tol = "atol 1e-2 max|ref[b]| for each sample b + rtol 1e-2 |ref|"
-    # the replaced fused backward reads q, k, v, dO, lse, delta and the bias,
-    # writes dq, dk, dv, and needs 5 products; the split pair recomputes
-    # s and dp, so each of its bounds counts its own 4 or 3
-    fused_bwd_bound_ms = bound(7 * io + 2 * rows + b * s * 4, 5 * mm,
-                               BF16_FLOPS)[0]
-    results["flash_fwd"] = dict(
-        route="cuda", source=FLASH_SRC,
-        replaces="dedloc_tpu/ops/flash_attention.py:61",
-        err=errs["flash_fwd"], tol=tol,
-        ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, bias)),
-        plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, bias)),
-        bound=bound(4 * io + b * s * 4 + rows, 2 * mm, BF16_FLOPS),
-        library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
-    )
-    results["flash_bwd_dkdv"] = dict(
-        route="cuda", source=FLASH_SRC,
-        replaces="dedloc_tpu/ops/flash_attention.py:262",
-        err=errs["flash_bwd_dkdv"], tol=tol,
-        ms=cuda_ms(lambda: fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)),
-        plain_ms=cuda_ms(
-            lambda: fa.flash_bwd_dkdv_plain(q, k, v, bias, lse, dout, delta)),
-        bound=bound(6 * io + 2 * rows + b * s * 4, 4 * mm, BF16_FLOPS),
-        fused_bwd_bound_ms=fused_bwd_bound_ms,
-        library_ms=lib_bwd_ms,
-        library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)",
-    )
-    results["flash_bwd_dq"] = dict(
-        route="cuda", source=FLASH_SRC,
-        replaces="dedloc_tpu/ops/flash_attention.py:262",
-        err=errs["flash_bwd_dq"], tol=tol,
-        ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta)),
-        plain_ms=cuda_ms(
-            lambda: fa.flash_bwd_dq_plain(q, k, v, bias, lse, dout, delta)),
-        bound=bound(5 * io + 2 * rows + b * s * 4, 3 * mm, BF16_FLOPS),
-        fused_bwd_bound_ms=fused_bwd_bound_ms,
-        library_ms=lib_bwd_ms,
-        library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)",
-    )
+    common = dict(route="cuda", source=FLASH_SRC, path=path, shape=list(shape),
+                  tol=tol, plain_timing=plain_timing)
+    lib_bwd = dict(library_ms=lib_bwd_ms,
+                   library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)")
+    # the fused single-tile backward (the S=512 rows' TPU kernel) reads q, k,
+    # v, dO, lse, delta and the bias, writes dq, dk, dv, and needs 5
+    # products; the split pair recomputes s and dp, so each of its bounds
+    # counts its own 4 or 3
+    fused = attention_bound(7 * io + 2 * rows + b * s * 4, 5, mm, n_exp)
+    result = [
+        dict(name="flash_fwd", replaces=replaces["flash_fwd"],
+             err=errs["flash_fwd"],
+             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, bias), reps, calls),
+             plain_ms=plain_ms(fa.flash_fwd_plain, q, k, v, bias),
+             **attention_bound(4 * io + b * s * 4 + rows, 2, mm, n_exp),
+             library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
+             **common),
+        dict(name="flash_bwd_dkdv", replaces=replaces["flash_bwd_dkdv"],
+             err=errs["flash_bwd_dkdv"],
+             ms=cuda_ms(lambda: fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
+                        reps, calls),
+             plain_ms=plain_ms(fa.flash_bwd_dkdv_plain, q, k, v, bias, lse,
+                               dout, delta),
+             **attention_bound(6 * io + 2 * rows + b * s * 4, 4, mm, n_exp),
+             fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd, **common),
+        dict(name="flash_bwd_dq", replaces=replaces["flash_bwd_dq"],
+             err=errs["flash_bwd_dq"],
+             ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta),
+                        reps, calls),
+             plain_ms=plain_ms(fa.flash_bwd_dq_plain, q, k, v, bias, lse,
+                               dout, delta),
+             **attention_bound(5 * io + 2 * rows + b * s * 4, 3, mm, n_exp),
+             fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd, **common),
+    ]
     del q, k, v, dout, out, lse, delta, qg, kg, vg
+    torch.cuda.synchronize()
+    return result
+
+
+def phase_kernels(seed: int) -> list:
+    from torch.nn.attention import SDPBackend
+
+    from dedloc_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fused = f"{FLASH_PY}:262"  # _dqkv_fused_kernel: S fits one tile
+    # S=512: samples 0 and 1 end early, sample 2 is all padding (uniform
+    # average of V, as the TPU kernel)
+    results = _flash_rows(
+        "S=512", FLASH_SHAPE, [300, 437, 0], gen,
+        {"flash_fwd": f"{FLASH_PY}:61", "flash_bwd_dkdv": fused,
+         "flash_bwd_dq": fused})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # S=16,384: the JAX package's split backward (_dkv_kernel, _dq_kernel);
+    # sample 0 keeps every key, sample 1 masks keys 12,288 on. SDPA without
+    # its math backend, which would materialise the scores
+    results += _flash_rows(
+        f"S={LONG_SEQ}", LONG_SHAPE, [LONG_SEQ, 12288], gen,
+        {"flash_fwd": f"{FLASH_PY}:61", "flash_bwd_dkdv": f"{FLASH_PY}:219",
+         "flash_bwd_dq": f"{FLASH_PY}:182"},
+        group=1, reps=5, calls=2,
+        sdpa_backends=[SDPBackend.EFFICIENT_ATTENTION,
+                       SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("[kernels] flash attention ragged S=200 (D=64 and D=128)")
     _check_flash("S=200 D=64", *_flash_inputs(2, 200, 16, 64, gen, [150, 0]))
     _check_flash("S=200 D=128", *_flash_inputs(2, 200, 8, 128, gen, [77]))
 
-    # fused add+LayerNorm at the slice's [B*S, hidden]
+    # fused add+LayerNorm at the S=512 path's [B*S, hidden]
     log("[kernels] fused add+LN at [6144, 1024] bf16")
     n, w = LN_ROWS, LN_WIDTH
     x, r, dy = (torch.randn((n, w), generator=gen, device="cuda")
@@ -335,25 +473,27 @@ def phase_kernels(seed: int) -> dict:
     check_close("ln_bwd da (H=1000)", fl.ln_bwd(xhs, rss, gamma[:1000].contiguous(), dys)[0],
                 fl.ln_bwd_plain(xhs, rss, gamma[:1000], dys)[0], 1e-2, 1e-2)
     row = n * w * 2
-    results["ln_fwd"] = dict(
-        route="triton", source=LN_SRC,
-        replaces="dedloc_tpu/ops/fused_ln.py:55",
+    common = dict(route="triton", source=LN_SRC, path="S=512", shape=[n, w],
+                  plain_timing="CUDA graph", library_ms=None, library=None)
+    results.append(dict(
+        name="ln_fwd", replaces="dedloc_tpu/ops/fused_ln.py:55",
         err=(fwd_err, None), tol="atol 1e-2 + rtol 1e-2 |ref|",
         ms=cuda_ms(lambda: fl.ln_fwd(x, r, gamma, beta, eps)),
         plain_ms=cuda_ms(lambda: fl.ln_fwd_plain(x, r, gamma, beta, eps)),
-        bound=bound(4 * row + 2 * w * 4 + n * 4, 10 * n * w, FP32_FLOPS),
-        library_ms=None, library=None,
-    )
-    results["ln_bwd"] = dict(
-        route="triton", source=LN_SRC,
-        replaces="dedloc_tpu/ops/fused_ln.py:110",
+        **bound(4 * row + 2 * w * 4 + n * 4,
+                fp32=10 * n * w / FP32_FLOPS * 1e3),
+        **common,
+    ))
+    results.append(dict(
+        name="ln_bwd", replaces="dedloc_tpu/ops/fused_ln.py:110",
         err=(bwd_err, None),
         tol="atol 1e-2 + rtol 1e-2 |ref| (dgamma, dbeta rtol 1e-4)",
         ms=cuda_ms(lambda: fl.ln_bwd(xhat, rstd, gamma, dy)),
         plain_ms=cuda_ms(lambda: fl.ln_bwd_plain(xhat, rstd, gamma, dy)),
-        bound=bound(3 * row + n * 4 + 3 * w * 4, 12 * n * w, FP32_FLOPS),
-        library_ms=None, library=None,
-    )
+        **bound(3 * row + n * 4 + 3 * w * 4,
+                fp32=12 * n * w / FP32_FLOPS * 1e3),
+        **common,
+    ))
     torch.cuda.synchronize()
     return results
 
@@ -403,11 +543,17 @@ def phase_reference(seed: int) -> None:
         f"{worst:.3e} (tol 5e-2)")
 
 
-# ----------------------------------------------------------------- phase 5
+# ------------------------------------------------------------- phase 5-6
 
 
-def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
-               seq: int = 512) -> dict:
+def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
+             expected: dict, steps: int = 3, trace: str = "") -> dict:
+    """``steps`` LAMB steps (accumulation 2, warmup 0) of ``model`` on
+    synthetic MLM batches of ``micro_batch`` x ``seq``, every launch
+    counter reset just before and read just after, each step's launches
+    checked against ``expected``; then, with ``trace``, one more step under
+    torch.profiler (not in the counts). The first step pays cuBLAS and
+    allocator warm-up and is not timed."""
     from dedloc_tpu_torch.core.config import TrainingArguments
     from dedloc_tpu_torch.ops import flash_attention as fa
     from dedloc_tpu_torch.ops import fused_ln as fl
@@ -415,22 +561,16 @@ def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
         TrainState, make_accumulate_step, make_apply_step, zeros_like_grads,
     )
     from dedloc_tpu_torch.roles.common import (
-        build_loss_fn, build_model, build_optimizer, drop_collator_keys,
-        synthetic_mlm_batches,
+        build_loss_fn, build_optimizer, drop_collator_keys, synthetic_mlm_batches,
     )
 
-    log("[path] ALBERT-large, 12 x 512, accumulation 2, 3 LAMB steps")
-    args = TrainingArguments(model_size="large", remat_policy="fused_ln",
-                             attention_impl="flash", warmup_steps=0,
-                             per_device_batch_size=micro_batch,
+    log(f"[{tag}] ALBERT-large, {micro_batch} x {seq}, accumulation 2, "
+        f"{steps} LAMB steps, remat={cfg.remat} ({cfg.remat_policy}), "
+        f"fused_ln={cfg.fused_ln}")
+    args = TrainingArguments(model_size="large", remat_policy=cfg.remat_policy,
+                             attention_impl=cfg.attention_impl, warmup_steps=0,
+                             per_device_batch_size=micro_batch, seq_length=seq,
                              gradient_accumulation_steps=2, seed=seed)
-    cfg, model = build_model(args.model_size, remat_policy=args.remat_policy,
-                             attention_impl=args.attention_impl,
-                             device="cuda", seed=seed)
-    if not (cfg.attention_impl == "flash" and cfg.fused_ln
-            and cfg.hidden_size == 1024 and cfg.num_hidden_layers == 24
-            and cfg.num_attention_heads == 16):
-        fail(f"unexpected config {cfg}")
     tx = build_optimizer(args)
     accumulate = make_accumulate_step(build_loss_fn(model))
     apply = make_apply_step(tx)
@@ -438,9 +578,6 @@ def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
     state = TrainState.create(params, tx)
     batches = synthetic_mlm_batches(cfg, micro_batch, seq, seed)
     wrappers = fa.WRAPPERS + fl.WRAPPERS
-    expected = {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
-                "ln_fwd": 96, "ln_bwd": 96}  # per optimizer step, accum 2
-
     losses = []
 
     def optimizer_step() -> None:
@@ -453,6 +590,8 @@ def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
         state = apply(state, {k: g / n_acc for k, g in grad_acc.items()})
         torch.cuda.synchronize()
 
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -468,33 +607,94 @@ def phase_path(seed: int, steps: int = 3, micro_batch: int = 12,
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated()
     # one more step, traced, for where its time goes (not in the counts)
-    profile = profile_step(optimizer_step)
+    profile = profile_step(optimizer_step, trace) if trace else None
 
     losses = [float(x) for x in losses]
     log(f"  losses {losses}")
     log(f"  launches per step {per_step}")
+    log(f"  step ms {[round(t * 1e3, 2) for t in step_s]}, peak {peak} bytes")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite loss {losses}")
+        fail(f"{tag}: non-finite loss {losses}")
     at_init = math.log(cfg.vocab_size) + math.log(2)
     if abs(losses[0] - at_init) > 0.5:
-        fail(f"first loss {losses[0]:.4f} not within 0.5 of {at_init:.4f}")
+        fail(f"{tag}: first loss {losses[0]:.4f} not within 0.5 of {at_init:.4f}")
     for counts in per_step:
         if counts != expected:
-            fail(f"launches per step {counts} != {expected}")
+            fail(f"{tag}: launches per step {counts} != {expected}")
     if not all(torch.isfinite(p).all() for p in params.values()):
-        fail("non-finite parameters after the steps")
-    if state.step != steps + 1:
-        fail(f"state.step {state.step} != {steps + 1}")
-    timed = step_s[1:]  # the first step pays cuBLAS/allocator warm-up
+        fail(f"{tag}: non-finite parameters after the steps")
+    if state.step != steps + (1 if trace else 0):
+        fail(f"{tag}: state.step {state.step} != {steps + (1 if trace else 0)}")
+    timed = step_s[1:]
     ms = statistics.median(timed) * 1e3
     samples = args.gradient_accumulation_steps * micro_batch
     return dict(
         steps=steps, micro_batch=micro_batch, seq_length=seq,
-        grad_accum=args.gradient_accumulation_steps, losses=losses,
+        grad_accum=args.gradient_accumulation_steps, remat=cfg.remat,
+        remat_policy=cfg.remat_policy, fused_ln=cfg.fused_ln, losses=losses,
         first_loss_at_init=at_init, step_ms=[t * 1e3 for t in step_s],
         ms_per_step=ms, samples_per_s=samples / (ms / 1e3),
-        max_memory_allocated=peak, launches=launches, profile=profile,
+        tokens_per_s=samples * seq / (ms / 1e3),
+        max_memory_allocated=peak, launches=launches,
+        launches_per_step=per_step[-1], profile=profile,
     )
+
+
+def _large(cfg, seed: int):
+    """ALBERT-large of ``cfg`` with random weights from ``seed`` on the card
+    (what ``build_model`` does, for configs it does not name)."""
+    from dedloc_tpu_torch.models.albert import AlbertForPreTraining, init_weights
+
+    model = AlbertForPreTraining(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to("cuda")
+
+
+def phase_path(seed: int, micro_batch: int = 12, seq: int = 512) -> dict:
+    from dedloc_tpu_torch.roles.common import build_model
+
+    cfg, model = build_model("large", remat_policy="fused_ln",
+                             attention_impl="flash", device="cuda", seed=seed)
+    if not (cfg.attention_impl == "flash" and cfg.fused_ln and cfg.remat
+            and cfg.hidden_size == 1024 and cfg.num_hidden_layers == 24
+            and cfg.num_attention_heads == 16):
+        fail(f"unexpected config {cfg}")
+    expected = {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
+                "ln_fwd": 96, "ln_bwd": 96}  # per optimizer step, accum 2
+    remat = run_path("path", cfg, model, micro_batch, seq, seed, expected,
+                     trace="path_step_trace.json")
+    del model
+    cfg = dataclasses.replace(cfg, remat=False)
+    keep_all = run_path("path, no remat", cfg, _large(cfg, seed), micro_batch,
+                        seq, seed, expected)
+    return dict(remat, no_remat={k: keep_all[k] for k in (
+        "ms_per_step", "samples_per_s", "step_ms", "max_memory_allocated",
+        "losses", "launches_per_step")})
+
+
+def phase_longctx(seed: int, seq: int = LONG_SEQ) -> dict:
+    """The JAX package's long-context bench configuration (``run_longctx``)
+    as one trainer peer: micro-batch 1 x 16,384, accumulation 2."""
+    from dedloc_tpu_torch.models.albert import AlbertConfig
+
+    cfg = AlbertConfig.large(max_position_embeddings=seq, attention_impl="flash",
+                             remat_policy="dots_no_batch_attn")
+    if not (cfg.remat and not cfg.fused_ln and cfg.attention_block_size < seq):
+        fail(f"unexpected config {cfg}")
+    expected = {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
+                "ln_fwd": 0, "ln_bwd": 0}
+    remat = run_path("longctx", cfg, _large(cfg, seed), 1, seq, seed, expected,
+                     trace="longctx_step_trace.json")
+    cfg = dataclasses.replace(cfg, remat=False)
+    keep_all = run_path("longctx, no remat", cfg, _large(cfg, seed), 1, seq,
+                        seed, expected, steps=2)
+    if not keep_all["max_memory_allocated"] > remat["max_memory_allocated"]:
+        fail(f"longctx: peak memory without remat "
+             f"{keep_all['max_memory_allocated']} is not above the remat "
+             f"run's {remat['max_memory_allocated']}")
+    return dict(remat, no_remat={k: keep_all[k] for k in (
+        "ms_per_step", "tokens_per_s", "step_ms", "max_memory_allocated",
+        "losses", "launches_per_step")})
 
 
 def _kind(name: str) -> str:
@@ -505,7 +705,7 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def profile_step(step) -> dict:
+def profile_step(step, trace_name: str) -> dict:
     """Run ``step`` once under torch.profiler (device activity only) and
     return its host wall time, the device's busy time (the union of its
     kernel, memcpy and memset intervals), the idle share 1 - busy / wall,
@@ -518,7 +718,7 @@ def profile_step(step) -> dict:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace = _build.BUILD_DIR / "path_step_trace.json"
+    trace = _build.BUILD_DIR / trace_name
     prof.export_chrome_trace(str(trace))
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -560,22 +760,27 @@ def main(argv=None) -> int:
     kernels = phase_kernels(args.seed)
     phase_reference(args.seed)
     path = phase_path(args.seed)
+    longctx = phase_longctx(args.seed)
 
     rows = []
-    for name, k in kernels.items():
-        bound_ms, bound_by = k.pop("bound")
+    for k in kernels:
+        name = k.pop("name")
         max_abs_err, samples_with_keys = k.pop("err")
+        # launches: the count from the run of the path the row was measured at
+        run = longctx if k["path"] == f"S={LONG_SEQ}" else path
         rows.append(dict(
             name=name, route=k.pop("route"), source=k.pop("source"),
-            replaces=k.pop("replaces"), launches=path["launches"][name],
+            replaces=k.pop("replaces"), launches=run["launches"][name],
+            launches_per_step=run["launches_per_step"][name],
             max_abs_err=max_abs_err, ms=k.pop("ms"), plain_ms=k.pop("plain_ms"),
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=k.pop("bound_ms"), bound_by=k.pop("bound_by"),
             library_ms=k.pop("library_ms"), **k,
             samples_with_keys=samples_with_keys,
         ))
     print(json.dumps({"build": {"nvcc_seconds": build_s}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"path": path}))
+    print(json.dumps({"longctx": longctx}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,28 +9,40 @@ follow it:
 - the residual add before each LayerNorm is fp32 (``AddLayerNorm``), through
   the fused add+LayerNorm kernel when ``cfg.fused_ln``;
 - ``attention_impl="flash"`` runs the flash-attention kernel; ``"dense"``
-  materialises the fp32 scores;
-- the encoder applies ONE shared block ``num_hidden_layers`` times;
+  materialises the fp32 scores; ``"blockwise"`` is the online softmax over
+  KV blocks of ``attention_block_size`` (``parallel/ring_attention.py``);
+- the encoder applies ONE shared block ``num_hidden_layers`` times, each
+  application rematerialised under ``cfg.remat`` with the JAX package's
+  policy of the same name (``remat_policy_object``);
 - the mask is an additive ``-1e9`` key bias; the tied MLM decoder and the
   SOP head return fp32 logits.
 
-Not in this slice (they raise ``NotImplementedError``): ``blockwise`` and
-``ring`` attention, ``pipe_mesh``, ``moe_experts > 0``, rematerialisation
-(``remat=True``; the port keeps every activation), and dropout in training
-mode.
+Not ported yet (they raise ``NotImplementedError``): ``ring`` attention,
+``pipe_mesh``, ``moe_experts > 0``, and dropout in training mode.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
-from typing import Any, Optional, Tuple
+import threading
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from dedloc_tpu_torch.ops import flash_attention as _flash
+from dedloc_tpu_torch.ops import fused_ln as _fused_ln
 from dedloc_tpu_torch.ops.flash_attention import flash_attention
 from dedloc_tpu_torch.ops.fused_ln import ln_residual, ln_residual_reference
+from dedloc_tpu_torch.parallel.ring_attention import blockwise_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +63,17 @@ class AlbertConfig:
     initializer_range: float = 0.02
     pad_token_id: int = 0
     dtype: Any = torch.bfloat16  # compute dtype; params stay fp32
-    # rematerialisation waits for a later slice: the port keeps every
-    # activation, so the default is off and True raises
-    remat: bool = False
-    # the policy name still selects the fused add+LN kernel
+    # rematerialise each application of the shared block under the named
+    # policy (``remat_policy_object``): "nothing" keeps only the block's
+    # inputs; the fused_ln* names also turn the fused add+LN kernel on
     # (``fused_ln_for_policy``), as the JAX builders do
+    remat: bool = True
     remat_policy: str = "nothing"
     fused_ln: bool = False
-    attention_impl: str = "dense"  # dense | flash (blockwise, ring: later)
+    attention_impl: str = "dense"  # dense | blockwise | flash (ring: later)
+    # the KV block of blockwise attention (JAX also tiles its flash kernel
+    # by it; the CUDA kernels tile by 64 at any length)
+    attention_block_size: int = 512
     # later slices (set here, they raise): pipeline stages, Switch-MoE FFN
     pipe_mesh: Any = None
     moe_experts: int = 0
@@ -101,18 +116,78 @@ def fused_ln_for_policy(remat_policy: str) -> bool:
     return remat_policy in FUSED_LN_POLICIES
 
 
+# ------------------------------------------------------------------- remat
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """``jax.ad_checkpoint.checkpoint_name`` without the copy: the ops run
+    inside the scope are named ``name`` for the ``save_only_these_names``
+    policies, which read the innermost name as each op runs. Wrap only the
+    op that produces the named tensor (and its views)."""
+    outer = getattr(_SCOPE, "name", None)
+    _SCOPE.name = name
+    try:
+        yield
+    finally:
+        _SCOPE.name = outer
+
+
+_aten = torch.ops.aten
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable: the Dense
+# projections (F.linear -> mm / addmm), not the attention einsums (bmm)
+_NO_BATCH_DOTS = frozenset({_aten.mm.default, _aten.addmm.default})
+# checkpoint_dots: every matmul
+_DOTS = _NO_BATCH_DOTS | {_aten.bmm.default, _aten.baddbmm.default}
+# _pallas_outputs_saveable: the outputs of the port's kernel operators,
+# flash (out, lse) and the fused add+LN (y, x̂, rstd)
+_KERNEL_OPS = frozenset({_flash.FORWARD_OP, _fused_ln.FORWARD_OP})
+
+
+def _saves(ops=frozenset(), names=()) -> Callable:
+    return lambda op: op in ops or getattr(_SCOPE, "name", None) in names
+
+
+def remat_policy_object(name: str) -> Callable:
+    """Resolve a remat-policy NAME to a selective-checkpoint policy function
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``) that
+    saves what the JAX policy of the same name saves. Raises on unknown
+    names."""
+    table = {
+        "nothing": _saves(),
+        "dots": _saves(_DOTS),
+        "dots_no_batch": _saves(_NO_BATCH_DOTS),
+        "dots_no_batch_attn": _saves(_NO_BATCH_DOTS | _KERNEL_OPS),
+        "fused_ln": _saves(_KERNEL_OPS, ("flash_qkv", "ffn_up")),
+        "fused_ln_gelu": _saves(_KERNEL_OPS, ("flash_qkv", "ffn_up", "ffn_gelu")),
+    }
+    if name not in table:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; expected one of {sorted(table)}"
+        )
+    save = table[name]
+
+    def policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        return (CheckpointPolicy.MUST_SAVE if save(op)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
 def _check_supported(cfg: AlbertConfig) -> None:
     later = []
-    if cfg.attention_impl in ("blockwise", "ring"):
+    if cfg.attention_impl == "ring":
         later.append(f"attention_impl={cfg.attention_impl!r}")
-    elif cfg.attention_impl not in ("dense", "flash"):
+    elif cfg.attention_impl not in ("dense", "blockwise", "flash"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.pipe_mesh is not None:
         later.append("pipe_mesh")
     if cfg.moe_experts > 0:
         later.append("moe_experts > 0")
     if cfg.remat:
-        later.append("remat")
+        remat_policy_object(cfg.remat_policy)  # unknown names raise here
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: not ported yet (later slices of the port)"
@@ -135,9 +210,14 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
+        """``name``: the remat name of the output (``checkpoint_name``)."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        args = (x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if name is None:
+            return F.linear(*args)
+        with checkpoint_name(name):
+            return F.linear(*args)
 
 
 class LayerNorm(nn.Module):
@@ -194,17 +274,27 @@ class AlbertSelfAttention(nn.Module):
         b, s, h = hidden.shape
         nh = cfg.num_attention_heads
         hd = h // nh
-        q = self.query(hidden).reshape(b, s, nh, hd)
-        k = self.key(hidden).reshape(b, s, nh, hd)
-        v = self.value(hidden).reshape(b, s, nh, hd)
+        # q, k and v are the flash kernel's inputs, named for the fused_ln*
+        # policies as the JAX package names them (in the flash call only)
+        name = "flash_qkv" if cfg.attention_impl == "flash" else None
+        q = self.query(hidden, name).reshape(b, s, nh, hd)
+        k = self.key(hidden, name).reshape(b, s, nh, hd)
+        v = self.value(hidden, name).reshape(b, s, nh, hd)
+        if (cfg.attention_impl in ("flash", "blockwise")
+                and cfg.attention_dropout_prob > 0.0 and not deterministic):
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} does not support "
+                "attention dropout in training (the reference recipe uses "
+                "0.0); use attention_impl='dense' or attention_dropout_prob=0"
+            )
         if cfg.attention_impl == "flash":
-            if cfg.attention_dropout_prob > 0.0 and not deterministic:
-                raise ValueError(
-                    "attention_impl='flash' does not support attention "
-                    "dropout in training (the reference recipe uses 0.0); "
-                    "use attention_impl='dense' or attention_dropout_prob=0"
-                )
             ctx = flash_attention(q, k, v, kv_bias).reshape(b, s, h)
+        elif cfg.attention_impl == "blockwise":
+            # the long-context path without the kernel: exact online softmax
+            # over KV blocks, never the S x S scores at once
+            ctx = blockwise_attention(
+                q, k, v, kv_bias, block_size=cfg.attention_block_size
+            ).reshape(b, s, h)
         else:
             # fp32 logits + softmax; bf16 probabilities and context
             _no_training_dropout(cfg.attention_dropout_prob, deterministic,
@@ -233,7 +323,11 @@ class AlbertLayer(nn.Module):
 
     def forward(self, hidden, kv_bias, deterministic: bool = True):
         hidden = self.attention(hidden, kv_bias, deterministic)
-        ffn = F.gelu(self.ffn(hidden), approximate="tanh")
+        # named for the fused_ln* policies: the up-projection (gelu's input)
+        # and the gelu output (saved by fused_ln_gelu only)
+        ffn = self.ffn(hidden, "ffn_up")
+        with checkpoint_name("ffn_gelu"):
+            ffn = F.gelu(ffn, approximate="tanh")
         ffn = self.ffn_output(ffn)
         _no_training_dropout(self.cfg.hidden_dropout_prob, deterministic,
                              "hidden")
@@ -250,7 +344,10 @@ class _SharedLayer(nn.Module):
 
 class AlbertEncoder(nn.Module):
     """ALBERT's cross-layer sharing: one block applied num_hidden_layers
-    times (the JAX package's ``nn.scan`` with broadcast params)."""
+    times (the JAX package's ``nn.scan`` with broadcast params). Under
+    ``cfg.remat`` each application is a selective checkpoint (the JAX
+    package's ``nn.remat`` of the scanned layer): the backward recomputes
+    what the policy does not save."""
 
     def __init__(self, cfg: AlbertConfig):
         super().__init__()
@@ -258,8 +355,17 @@ class AlbertEncoder(nn.Module):
         self.layer = _SharedLayer(cfg)
 
     def forward(self, hidden, kv_bias, deterministic: bool = True):
+        block = self.layer.block
+        if self.cfg.remat and torch.is_grad_enabled():
+            contexts = functools.partial(
+                create_selective_checkpoint_contexts,
+                remat_policy_object(self.cfg.remat_policy))
+            for _ in range(self.cfg.num_hidden_layers):
+                hidden = checkpoint(block, hidden, kv_bias, deterministic,
+                                    use_reentrant=False, context_fn=contexts)
+            return hidden
         for _ in range(self.cfg.num_hidden_layers):
-            hidden = self.layer.block(hidden, kv_bias, deterministic)
+            hidden = block(hidden, kv_bias, deterministic)
         return hidden
 
 

@@ -10,11 +10,18 @@ Three kernels, in ``csrc/flash_attention.cu`` (built by ``_build.py``):
 
 - ``flash_fwd``: replaces ``_fwd_kernel`` (the ``pallas_call`` in ``_fwd``).
   Writes ``out`` and ``lse = m + log(max(l, 1e-30))``.
-- ``flash_bwd_dkdv`` and ``flash_bwd_dq``: together replace the single-tile
-  ``_dqkv_fused_kernel`` (``_bwd_fused``), which is the backward the
-  ALBERT seq-512 step runs; they compute the same function as the split
-  ``_dq_kernel``/``_dkv_kernel`` pair too. ``delta = rowsum(dO * out)`` is
-  computed outside the kernels in fp32, as the JAX custom VJP does.
+- ``flash_bwd_dkdv`` and ``flash_bwd_dq``: tiled over 64-row key and query
+  tiles at any S, they replace both backward paths of ``_bwd``: the split
+  ``_dkv_kernel``/``_dq_kernel`` pair that JAX runs when S exceeds its block
+  (the S=16,384 long-context step) and the single-tile
+  ``_dqkv_fused_kernel`` it runs otherwise (the seq-512 step).
+  ``delta = rowsum(dO * out)`` is computed outside the kernels in fp32, as
+  the JAX custom VJP does.
+
+The forward is an operator the dispatcher sees (``dedloc_tpu_torch::
+flash_fwd``, registered with ``torch.library``), so a selective-checkpoint
+policy can keep its ``out`` and ``lse`` and a recompute launches nothing
+(``models/albert.py`` ``remat_policy_object``).
 
 The source's header says what bounds each kernel on an H100 and how the
 design answers it. Each wrapper takes the plain version only for a tensor on
@@ -139,6 +146,8 @@ def _check_common(q, k, v, bias):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} unsupported: the kernel takes "
                          f"{SUPPORTED_HEAD_DIMS}")
+    if -(-s // 64) > 65535:  # grid (B*H, S/64): y is at most 65535 tiles
+        raise ValueError(f"S={s}: the kernels take at most 65535 tiles of 64")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_bshd(name, t, (b, s, h, d))
     _check_f32("bias", bias, (b, s))
@@ -231,23 +240,40 @@ def softmax_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- public op
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        out, lse = flash_fwd(q, k, v, bias)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        return out
+@torch.library.custom_op("dedloc_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, bias)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = softmax_delta(out, dout)
-        dk, dv = flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
-        dq = flash_bwd_dq(q, k, v, bias, lse, dout, delta)
-        # the mask bias is a non-differentiable input: zero gradient
-        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
-        return dq, dk, dv, dbias
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, bias):
+    b, s, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b * h, s), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    out, lse = output
+    ctx.save_for_backward(*inputs, out, lse)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, bias, out, lse = ctx.saved_tensors
+    dout = dout.contiguous()
+    delta = softmax_delta(out, dout)
+    dk, dv = flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
+    dq = flash_bwd_dq(q, k, v, bias, lse, dout, delta)
+    # the mask bias is a non-differentiable input: zero gradient
+    dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+    return dq, dk, dv, dbias
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+#: The forward's operator, as a selective-checkpoint policy sees it.
+FORWARD_OP = torch.ops.dedloc_tpu_torch.flash_fwd.default
 
 
 def flash_attention(
@@ -260,4 +286,4 @@ def flash_attention(
     if bias is None:
         bias = torch.zeros(q.shape[:2], device=q.device, dtype=torch.float32)
     bias = bias.to(torch.float32).contiguous()
-    return _FlashAttention.apply(q, k, v, bias)
+    return _flash_fwd_op(q, k, v, bias)[0]

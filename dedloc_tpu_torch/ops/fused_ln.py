@@ -31,12 +31,15 @@ Numerics follow the TPU kernel: the residual add, mean, centred variance and
 rstd in fp32, and the backward reads them back (it does not recompute x̂).
 Each wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
-launches.
+launches. The forward with residuals is an operator the dispatcher sees
+(``dedloc_tpu_torch::ln_fwd``), so a selective-checkpoint policy can keep
+(y, x̂, rstd) and a recompute launches nothing.
 """
 from __future__ import annotations
 
 import functools
 import os
+from typing import Tuple
 
 import torch
 
@@ -260,20 +263,37 @@ WRAPPERS = (ln_fwd, ln_bwd)
 # ----------------------------------------------------------------- public op
 
 
-class _LnResidual(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x2, r2, gamma, beta, eps):
-        y, xhat, rstd = ln_fwd(x2, r2, gamma, beta, eps)
-        ctx.save_for_backward(xhat, rstd, gamma)
-        ctx.r_dtype = r2.dtype
-        return y
+@torch.library.custom_op("dedloc_tpu_torch::ln_fwd", mutates_args=())
+def _ln_fwd_op(x2: torch.Tensor, r2: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor, eps: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ln_fwd(x2, r2, gamma, beta, eps)
 
-    @staticmethod
-    def backward(ctx, dy):
-        xhat, rstd, gamma = ctx.saved_tensors
-        da, dgamma, dbeta = ln_bwd(xhat, rstd, gamma, dy.contiguous())
-        # the residual add fans the same cotangent to both inputs
-        return da, da.to(ctx.r_dtype), dgamma, dbeta, None
+
+@_ln_fwd_op.register_fake
+def _(x2, r2, gamma, beta, eps):
+    return (torch.empty_like(x2), torch.empty_like(x2),
+            x2.new_empty(x2.shape[:1], dtype=torch.float32))
+
+
+def _ln_setup(ctx, inputs, output):
+    _, xhat, rstd = output
+    ctx.save_for_backward(xhat, rstd, inputs[2])
+    ctx.r_dtype = inputs[1].dtype
+    ctx.mark_non_differentiable(xhat, rstd)
+
+
+def _ln_backward(ctx, dy, _dxhat, _drstd):
+    xhat, rstd, gamma = ctx.saved_tensors
+    da, dgamma, dbeta = ln_bwd(xhat, rstd, gamma, dy.contiguous())
+    # the residual add fans the same cotangent to both inputs
+    return da, da.to(ctx.r_dtype), dgamma, dbeta, None
+
+
+_ln_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup)
+
+#: The forward's operator, as a selective-checkpoint policy sees it.
+FORWARD_OP = torch.ops.dedloc_tpu_torch.ln_fwd.default
 
 
 def ln_residual(
@@ -294,7 +314,7 @@ def ln_residual(
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, r, gamma, beta)
     ):
-        y = _LnResidual.apply(x2, r2, gamma, beta, float(eps))
+        y = _ln_fwd_op(x2, r2, gamma, beta, float(eps))[0]
     else:
         y, _, _ = ln_fwd(x2, r2, gamma, beta, float(eps), with_residuals=False)
     return y.reshape(x.shape)

@@ -156,8 +156,8 @@ def test_convert_accepts_slash_joined_names(fp32_case):
 
 
 def test_unported_features_raise():
-    for overrides in (dict(attention_impl="ring"), dict(attention_impl="blockwise"),
-                      dict(moe_experts=2), dict(remat=True), dict(pipe_mesh=object())):
+    for overrides in (dict(attention_impl="ring"), dict(moe_experts=2),
+                      dict(pipe_mesh=object())):
         with pytest.raises(NotImplementedError):
             AlbertForPreTraining(AlbertConfig.tiny(**overrides))
 

@@ -8,19 +8,23 @@ Phases (any failure exits non-zero):
 1. device     the card's name, power limit and maximum SM clock
               (nvidia-smi); TF32 off for every comparison (matmul and cuDNN).
 2. build      nvcc builds the CUDA kernels from ``dedloc_tpu_torch/ops/csrc``
-              (timed); Triton kernels build at their first launch.
+              (timed); registers and spill bytes per kernel from ptxas;
+              Triton kernels build at their first launch.
 3. kernels    every kernel of the training paths against its plain PyTorch
               version on the same inputs at the paths' shapes: flash
               [12, 512, 16, 64] bf16 with two short samples and one
               all-padding sample, and flash [2, 16384, 16, 64] bf16 (one
               sample with every key, one with keys from 12,288 on masked;
               its plain versions run one head at a time: [B, H, S, S] fp32
-              is 17 GB per tensor); add+LN [6144, 1024] bf16; plus ragged
-              S=200 cases. The flash tolerance scales with each sample's
-              own max |ref|. Device time per call (CUDA-graph replays
-              between CUDA events, median) of the kernel, the plain version
-              and, where one exists, the one PyTorch call computing the
-              same function (timed only, never used by the port).
+              is 17 GB per tensor); two launches of each backward kernel
+              bitwise equal at both shapes; add+LN [6144, 1024] bf16; plus
+              ragged cases at the tile edges (S=100, 200 and 16,320 at
+              D=64, S=200 at D=128) and every other supported head dim at
+              S=130. The flash tolerance scales with each sample's own
+              max |ref|. Device time per call (CUDA-graph replays between
+              CUDA events, median) of the kernel, the plain version and,
+              where one exists, the one PyTorch call computing the same
+              function (timed only, never used by the port).
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
 5. path       ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
@@ -214,25 +218,34 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> float:
+def phase_build() -> tuple:
+    """Builds the CUDA kernels; returns the seconds it took and, per kernel
+    instance (``flash_bwd_dq_kernel<64>``), the registers a thread is
+    launched with and the bytes ptxas spills (stores)."""
     from dedloc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.build("flash_attention")
     seconds = time.perf_counter() - t0
     log(f"[build] nvcc flash_attention.cu: {seconds:.1f} s")
-    # one line per kernel instance: registers and spills (ptxas -v)
-    name, spills = "?", ""
+    # one line per kernel instance: registers and spills (ptxas -v); and
+    # any ptxas warning (a serialised wgmma pipeline says so there)
+    name, spill_bytes, regs = "?", 0, {}
     for line in _build.build_log("flash_attention").splitlines():
-        entry = re.search(r"Compiling entry function '.*?(flash_\w+_kernel)ILi(\d+)E", line)
+        entry = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_kernel)ILi(\d+)E",
+                          line)
         if entry:
             name = f"{entry.group(1)}<{entry.group(2)}>"
         elif "spill stores" in line:
-            spills = line.strip()
+            spill_bytes = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            log(f"  {name}: {line.strip()}")
         elif "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            log(f"  {name}: {regs} registers, {spills}")
-    return seconds
+            n = int(re.search(r"Used (\d+) registers", line).group(1))
+            regs[name] = dict(registers=n, spill_bytes=spill_bytes)
+            log(f"  {name}: {n} registers")
+        elif "warning" in line.lower():
+            log(f"  ptxas: {line.strip()}")
+    return seconds, regs
 
 
 # ----------------------------------------------------------------- phase 3
@@ -315,6 +328,23 @@ def _check_flash(tag, q, k, v, dout, bias, group=None) -> dict:
     }
 
 
+def _check_repeat(tag, q, k, v, bias, lse, dout, delta) -> bool:
+    """Two launches of each backward kernel on the same inputs give
+    bitwise-equal outputs (every output tile has one owner, no atomics)."""
+    from dedloc_tpu_torch.ops import flash_attention as fa
+
+    first = (*fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
+             fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
+    second = (*fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
+              fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
+    for name, a, b in zip(("dk", "dv", "dq"), first, second):
+        if not torch.equal(a, b):
+            fail(f"{tag} flash_bwd {name}: two launches differ "
+                 f"(max {float((a.float() - b.float()).abs().max()):.3e})")
+    log(f"  {tag} flash_bwd dk, dv, dq: two launches bitwise equal")
+    return True
+
+
 def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
                 group=None, sdpa_backends=None, reps=25, calls=10) -> list:
     """The three flash kernels at ``shape``: checked against their plain
@@ -328,10 +358,13 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
     b, s, h, d = shape
     q, k, v, dout, bias = _flash_inputs(b, s, h, d, gen, lengths)
     log(f"[kernels] flash attention at {list(shape)} bf16, keys per sample "
-        f"{lengths}, grid ({b * h}, {-(-s // 64)}) of 64-row tiles")
+        f"{lengths}, grids ({b * h}, {-(-s // fa.FWD_TILE)}) of {fa.FWD_TILE}-row "
+        f"tiles (forward) and ({b * h}, {-(-s // fa.BWD_TILE)}) of "
+        f"{fa.BWD_TILE}-row tiles (backward)")
     errs = _check_flash(f"S={s}", q, k, v, dout, bias, group)
     out, lse = fa.flash_fwd(q, k, v, bias)
     delta = fa.softmax_delta(out, dout)
+    bitwise = _check_repeat(f"S={s}", q, k, v, bias, lse, dout, delta)
     # the library yardstick: SDPA with the same float mask ([B, H, S, D] views)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, dout))
     mask = bias.to(torch.bfloat16)[:, None, None, :]
@@ -370,6 +403,7 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
     tol = "atol 1e-2 max|ref[b]| for each sample b + rtol 1e-2 |ref|"
     common = dict(route="cuda", source=FLASH_SRC, path=path, shape=list(shape),
                   tol=tol, plain_timing=plain_timing)
+    bwd = dict(bitwise_repeat=bitwise, **common)
     lib_bwd = dict(library_ms=lib_bwd_ms,
                    library="SDPA autograd backward, dq+dk+dv (fwd+bwd less fwd)")
     # the fused single-tile backward (the S=512 rows' TPU kernel) reads q, k,
@@ -383,7 +417,7 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
              ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, bias), reps, calls),
              plain_ms=plain_ms(fa.flash_fwd_plain, q, k, v, bias),
              **attention_bound(4 * io + b * s * 4 + rows, 2, mm, n_exp),
-             library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
+             tensor_flops=2 * mm, library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
              **common),
         dict(name="flash_bwd_dkdv", replaces=replaces["flash_bwd_dkdv"],
              err=errs["flash_bwd_dkdv"],
@@ -392,7 +426,8 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
              plain_ms=plain_ms(fa.flash_bwd_dkdv_plain, q, k, v, bias, lse,
                                dout, delta),
              **attention_bound(6 * io + 2 * rows + b * s * 4, 4, mm, n_exp),
-             fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd, **common),
+             tensor_flops=4 * mm, fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd,
+             **bwd),
         dict(name="flash_bwd_dq", replaces=replaces["flash_bwd_dq"],
              err=errs["flash_bwd_dq"],
              ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta),
@@ -400,7 +435,8 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
              plain_ms=plain_ms(fa.flash_bwd_dq_plain, q, k, v, bias, lse,
                                dout, delta),
              **attention_bound(5 * io + 2 * rows + b * s * 4, 3, mm, n_exp),
-             fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd, **common),
+             tensor_flops=3 * mm, fused_bwd_bound_ms=fused["bound_ms"], **lib_bwd,
+             **bwd),
     ]
     del q, k, v, dout, out, lse, delta, qg, kg, vg
     torch.cuda.synchronize()
@@ -410,6 +446,7 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
 def phase_kernels(seed: int) -> list:
     from torch.nn.attention import SDPBackend
 
+    from dedloc_tpu_torch.ops import flash_attention as fa
     from dedloc_tpu_torch.ops import fused_ln as fl
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -435,9 +472,23 @@ def phase_kernels(seed: int) -> list:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("[kernels] flash attention ragged S=200 (D=64 and D=128)")
+    # ragged tiles: S=100 is below one 128-row backward tile, S=200 ends
+    # inside the second, S=16,320 is a multiple of 64 that ends half way
+    # through the last 128-row tile
+    log("[kernels] flash attention ragged S=100, 200, 16,320 (D=64), S=200 (D=128)")
+    _check_flash("S=100 D=64", *_flash_inputs(2, 100, 16, 64, gen, [100, 37]))
     _check_flash("S=200 D=64", *_flash_inputs(2, 200, 16, 64, gen, [150, 0]))
     _check_flash("S=200 D=128", *_flash_inputs(2, 200, 8, 128, gen, [77]))
+    _check_flash("S=16320 D=64", *_flash_inputs(2, 16320, 2, 64, gen, [16320, 9000]),
+                 group=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every other head dim the wrappers accept (each has its own swizzle and
+    # wgmma N pieces), two rows into the second 128-row tile
+    others = [d for d in fa.SUPPORTED_HEAD_DIMS if d not in (64, 128)]
+    log(f"[kernels] flash attention S=130 at D={others}")
+    for d in others:
+        _check_flash(f"S=130 D={d}", *_flash_inputs(2, 130, 2, d, gen, [130, 61]))
 
     # fused add+LayerNorm at the S=512 path's [B*S, hidden]
     log("[kernels] fused add+LN at [6144, 1024] bf16")
@@ -756,7 +807,7 @@ def main(argv=None) -> int:
     import dedloc_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     smi = phase_device()
-    build_s = phase_build()
+    build_s, build_regs = phase_build()
     kernels = phase_kernels(args.seed)
     phase_reference(args.seed)
     path = phase_path(args.seed)
@@ -777,7 +828,13 @@ def main(argv=None) -> int:
             library_ms=k.pop("library_ms"), **k,
             samples_with_keys=samples_with_keys,
         ))
-    print(json.dumps({"build": {"nvcc_seconds": build_s}}))
+        if rows[-1]["route"] == "cuda":
+            # ptxas at the path's head dim: the registers a thread is launched
+            # with (the backward's consumer warpgroups raise theirs with
+            # setmaxnreg), and the tensor-core rate this call reached
+            rows[-1].update(build_regs[f"{name}_kernel<{k['shape'][3]}>"])
+            rows[-1]["tflops"] = k["tensor_flops"] / (rows[-1]["ms"] * 1e-3) / 1e12
+    print(json.dumps({"build": {"nvcc_seconds": build_s, "ptxas": build_regs}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"path": path}))
     print(json.dumps({"longctx": longctx}))

@@ -3,8 +3,9 @@
 Each source under ``ops/csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). The library lands in ``dedloc_tpu_torch/build/``, named
-by a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Building happens at first use, never at
+by a hash of its source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. Building happens at first use, never at
 import: the CPU-only test environment has no ``nvcc``.
 """
 from __future__ import annotations
@@ -44,11 +45,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every header under ``csrc/`` (any of them may be included) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> None:

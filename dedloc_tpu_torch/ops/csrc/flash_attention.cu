@@ -3,45 +3,72 @@
 //
 // Replaces the Pallas TPU kernels of dedloc_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel       <- _fwd_kernel (via _fwd, the pallas_call at :143)
-//   flash_bwd_dkdv_kernel  \  <- _dqkv_fused_kernel (the single-tile backward,
-//   flash_bwd_dq_kernel    /     pallas_call at :361), and the same function as
-//                                the split _dq_kernel/_dkv_kernel pair
+//   flash_bwd_dkdv_kernel  <- _dkv_kernel (split backward, pallas_call at :327)
+//   flash_bwd_dq_kernel    <- _dq_kernel (split backward, pallas_call at :309)
+//   and the pair together  <- _dqkv_fused_kernel (the single-tile backward,
+//                             pallas_call at :361)
 //
-// What bounds it on an H100: at the ALBERT-large slice (B=12, S=512, H=16,
-// D=64) the forward moves ~50 MB and does ~13 GFLOP, so bytes and tensor-core
-// operations are nearly balanced (~15 us each); the backward does ~32 GFLOP
-// and is bound by operations. The design keeps every score tile on chip:
-// HBM traffic is O(S*D) per head, never O(S^2). Products run on the tensor
-// cores through mma.sync m16n8k16 (bf16 x bf16 -> fp32) with operands loaded
-// by ldmatrix; scores, probabilities and the output / gradient accumulators
-// stay in registers, and the online softmax and the gradient elementwise work
-// are fp32. No TMA, no wgmma, no warp specialisation yet.
+// Layout: q, k, v, out, dO, dq, dk, dv are [B, S, H, D] read through their
+// strides (the last dimension contiguous); the bias is a per-key additive
+// [B, S] row indexed by bh / H; lse and delta are [B*H, S] fp32.
 //
-// Design, against the TPU kernel:
-// - The TPU grid ran the KV axis sequentially and carried (acc, m, l) in VMEM
-//   scratch. Here one block owns one (batch*head, 64-query tile) and loops
-//   over 64-key tiles itself; each of its 4 warps owns 16 query rows and
-//   keeps their accumulator and running max / sum in registers, so after the
-//   K/V tile lands in shared memory a warp needs no block barrier.
-// - The fused TPU backward kept one 512x512 fp32 score tile per head in VMEM
-//   (1 MB), which does not fit in 227 KB of shared memory. The backward is
-//   therefore tiled as two kernels that recompute p = exp(s - lse): dK/dV with
-//   one block per key tile looping over query tiles, and dQ with one block per
-//   query tile looping over key tiles. Each output tile has one owner, so
-//   there are no atomics and the result is deterministic.
-// - Layout: q, k, v, out, dO, dq, dk, dv are [B, S, H, D] read through their
-//   strides (the last dimension contiguous); the bias is a per-key additive
-//   [B, S] row indexed by bh / H; lse and delta are [B*H, S] fp32.
-// - Numerics follow the TPU kernel: s = (q.k) * scale + bias in fp32; the
-//   running max starts at -1e30 with no -inf special case, so a row whose keys
-//   are all masked by a finite -1e9 bias averages V uniformly; p is rounded to
-//   bf16 before p.V; out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30));
-//   ds = p * (dp - delta) * scale is rounded to bf16 before ds.K and ds^T.Q.
-// - Keys or queries past S in the last (ragged) tile load as zeros and get
-//   probability exactly 0; their outputs are not written.
+// Numerics follow the TPU kernel: s = (q.k) * scale + bias in fp32; the
+// running max starts at -1e30 with no -inf special case, so a row whose keys
+// are all masked by a finite -1e9 bias averages V uniformly (and in the
+// backward s - lse is 0 there, so p = 1 for every key); p is rounded to bf16
+// before p.V; out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30));
+// ds = p * (dp - delta) * scale is rounded to bf16 before ds.K and ds^T.Q.
+// Keys or queries past S in the last (ragged) tile get probability exactly 0;
+// their outputs are not written.
+//
+// Forward. At the ALBERT-large slice (B=12, S=512, H=16, D=64) it moves
+// ~50 MB and does ~13 GFLOP, so bytes and tensor-core operations are nearly
+// balanced (~15 us each). The TPU grid ran the KV axis sequentially and
+// carried (acc, m, l) in VMEM scratch; here one block owns one (batch*head,
+// 64-query tile) and loops over 64-key tiles itself, each of its 4 warps
+// owning 16 query rows on mma.sync m16n8k16 with ldmatrix operands, scores
+// and accumulators in registers.
+//
+// Backward. The fused TPU backward kept one 512x512 fp32 score tile per head
+// in VMEM (1 MB), which does not fit in 227 KB of shared memory, so the
+// backward is two kernels that recompute p = exp(s - lse): dK/dV with one
+// block per 128-key tile looping over 64-query tiles, and dQ with one block
+// per 128-query tile looping over 64-key tiles. Each output tile has one
+// owner: no atomics, and repeated runs are bitwise equal.
+// - What bounds them: operations. Per score, dK/dV does 4 products (S^T =
+//   K.Q^T, dP^T = V.dO^T, dV += P^T.dO, dK += dS^T.Q) and dQ 3 (S = Q.K^T,
+//   dP = dO.V^T, dQ += dS.K), 2 D flops each on the bf16 tensor cores, plus
+//   one exp per score on the special-function units; HBM traffic is O(S*D)
+//   per head. At [2, 16384, 16, 64] that is 4.45 and 3.34 ms of tensor-core
+//   time at 989 TFLOP/s, against ~0.02 ms of bytes.
+// - What the design does about it: every product is a warpgroup wgmma
+//   (m64nNk16, bf16 x bf16 -> fp32), the only instruction that reaches the
+//   tensor cores' full rate. A block is three warpgroups: one producer warp
+//   and two consumer warpgroups of 64 resident rows each (setmaxnreg moves
+//   registers from the producer to the consumers). The resident tile (K and V
+//   for dK/dV, Q and dO for dQ; 128 rows) is loaded once by TMA and stays in
+//   shared memory; the streamed tiles (Q, dO, lse, delta for dK/dV; K, V and
+//   the bias row for dQ) arrive through a ring of STAGES buffers filled by
+//   TMA (cp.async.bulk.tensor, 4-D tensor maps over (D, H, S, B) built from
+//   the strides, zero fill past S) and handed over with mbarriers, so the
+//   copy of the next tiles overlaps the products on the current one. The
+//   score products read both operands from shared memory (K-major); the
+//   gradient products take P^T / dS^T (or dS) from registers, converted in
+//   place from the fp32 accumulator, and B from the same streamed tile with
+//   the transpose bit (MN-major). Shared tiles use wgmma's swizzled layouts
+//   (128-byte swizzle at D=64; hopper.cuh). Exps are ex2.approx on
+//   (s * scale + bias - lse) * log2(e), the difference taken first in fp32 as
+//   the reference does.
+// - What still holds them back (PERF.md, Findings): the exps (16 per clock per
+//   SM) and the other per-score work add to the products instead of hiding
+//   behind them; schedules that interleave the two warpgroups or pipeline
+//   tiles within one were measured and were no faster.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -155,25 +182,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, Strides st
   }
 }
 
-// s[8][4] (+)= A rows [a_row0, +16) of tile a . (64 rows of tile bt)^T, over D
-template <int D>
-__device__ __forceinline__ void strip_abt(float (&s)[8][4], const bf16* a, int a_row0,
-                                          const bf16* bt) {
-  constexpr int LDH = D + PAD_H;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    load_a<LDH>(fa, a, a_row0, kk * 16);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t fb[4];
-      load_b_nk<LDH>(fb, bt, np * 16, kk * 16);
-      mma16816(s[2 * np], fa, fb[0], fb[1]);
-      mma16816(s[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
 // acc[D/8][4] += P (16 x 64, C layout) . M (64 rows x D, row-major tile)
 template <int D>
 __device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
@@ -193,31 +201,9 @@ __device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p
   }
 }
 
-// write a warp's two rows per thread (g and g+8 of its strip) as bf16
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], int row_g, int S,
-                                           bf16* dst, Strides st, int b, int h) {
-  const int t = threadIdx.x % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row_g + 8 * half;
-    if (row >= S) continue;
-    bf16* out = dst + b * st.b + (long long)row * st.s + h * st.h;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2 * half], acc[j][2 * half + 1]);
-  }
-}
-
 template <int D>
 constexpr int fwd_smem_bytes() {
   return 3 * 64 * (D + PAD_H) * 2 + 64 * 4;
-}
-
-template <int D>
-constexpr int bwd_smem_bytes() {
-  return 4 * 64 * (D + PAD_H) * 2 + 2 * 64 * 4;
 }
 
 // ---------------------------------------------------------------- forward
@@ -335,164 +321,378 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// ---------------------------------------------------------------- backward
+
+constexpr int BWD_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 = 384 x 168 registers
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float pos_infinity() { return __int_as_float(0x7f800000); }
+
+// Shared memory of a backward block, from a 1024-byte aligned base: two
+// resident tiles of RES rows, STAGES ring slots of two streamed tiles of
+// STREAM rows and two fp32 rows of STREAM, then the mbarriers.
+template <int D>
+struct Bwd {
+  static constexpr int CW = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;  // swizzle row, bf16
+  static constexpr int RES = 128;   // resident rows: one 64-row slab per consumer warpgroup
+  static constexpr int STREAM = 64;  // rows per streamed tile
+  static constexpr int STAGES = 3;
+  static constexpr int RES_BYTES = RES * D * 2;
+  static constexpr int TILE_BYTES = STREAM * D * 2;
+  static constexpr int SLOT_BYTES = 2 * TILE_BYTES;
+  static constexpr int OFF_STREAM = 2 * RES_BYTES;
+  static constexpr int OFF_ROWS = OFF_STREAM + STAGES * SLOT_BYTES;
+  static constexpr int OFF_BARS = OFF_ROWS + STAGES * 2 * STREAM * 4;
+  static constexpr int SMEM = OFF_BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(RES_BYTES % 1024 == 0 && TILE_BYTES % 1024 == 0, "swizzle alignment");
+};
+
+// The block's shared memory and barriers: full[s] (the producer warp's 32
+// arrivals plus the TMA bytes of slot s), empty[s] (every consumer thread
+// done with slot s), res (the resident tiles' TMA bytes).
+template <int D>
+struct BwdSmem {
+  using C = Bwd<D>;
+  uint32_t base;
+  float* rows;
+  __device__ explicit BwdSmem(unsigned char* raw_ptr) {
+    const uint32_t raw = hopper::smem_addr(raw_ptr);
+    base = (raw + 1023u) & ~1023u;
+    rows = reinterpret_cast<float*>(raw_ptr + (base - raw) + C::OFF_ROWS);
+  }
+  __device__ uint32_t res(int i) const { return base + i * C::RES_BYTES; }
+  __device__ uint32_t tile(int slot, int i) const {
+    return base + C::OFF_STREAM + slot * C::SLOT_BYTES + i * C::TILE_BYTES;
+  }
+  __device__ float* row(int slot, int i) const { return rows + (2 * slot + i) * C::STREAM; }
+  __device__ uint32_t full(int slot) const { return base + C::OFF_BARS + 8 * slot; }
+  __device__ uint32_t empty(int slot) const {
+    return base + C::OFF_BARS + 8 * (C::STAGES + slot);
+  }
+  __device__ uint32_t res_bar() const { return base + C::OFF_BARS + 8 * 2 * C::STAGES; }
+
+  __device__ void init_barriers() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < C::STAGES; ++s) {
+        hopper::mbar_init(full(s), 32);
+        hopper::mbar_init(empty(s), 2 * 128);
+      }
+      hopper::mbar_init(res_bar(), 1);
+      hopper::mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// rows [row0, row0 + 128) of head (b, h) of two tensors into the resident
+// tiles, as 64-row boxes per column chunk (one thread)
+template <int D>
+__device__ __forceinline__ void load_resident(const BwdSmem<D>& sm, const CUtensorMap* m0,
+                                              const CUtensorMap* m1, int b, int h, int row0) {
+  using C = Bwd<D>;
+  hopper::mbar_expect_tx(sm.res_bar(), 2 * C::RES_BYTES);
+#pragma unroll
+  for (int c = 0; c < D / C::CW; ++c)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t off = c * C::RES * C::CW * 2 + half * 64 * C::CW * 2;
+      hopper::tma_load_4d(sm.res(0) + off, m0, sm.res_bar(), c * C::CW, h, row0 + 64 * half, b);
+      hopper::tma_load_4d(sm.res(1) + off, m1, sm.res_bar(), c * C::CW, h, row0 + 64 * half, b);
+    }
+  hopper::mbar_arrive(sm.res_bar());
+}
+
+// rows [row0, row0 + 64) of head (b, h) of two tensors into ring slot s (one
+// thread; the slot's full barrier counts the bytes)
+template <int D>
+__device__ __forceinline__ void load_stream(const BwdSmem<D>& sm, int s, const CUtensorMap* m0,
+                                            const CUtensorMap* m1, int b, int h, int row0) {
+  using C = Bwd<D>;
+  hopper::mbar_expect_tx(sm.full(s), C::SLOT_BYTES);
+#pragma unroll
+  for (int c = 0; c < D / C::CW; ++c) {
+    const uint32_t off = c * C::STREAM * C::CW * 2;
+    hopper::tma_load_4d(sm.tile(s, 0) + off, m0, sm.full(s), c * C::CW, h, row0, b);
+    hopper::tma_load_4d(sm.tile(s, 1) + off, m1, sm.full(s), c * C::CW, h, row0, b);
+  }
+}
+
+// S (or S^T, dP, dP^T) = rows [64 w, +64) of a resident tile . (a streamed
+// tile)^T over D: one wgmma per 16 columns, both operands K-major
+template <int D>
+__device__ __forceinline__ void score_product(float (&acc)[32], uint32_t res, int w,
+                                              uint32_t tile) {
+  using C = Bwd<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss_n64<0>(acc, hopper::desc_kmajor<C::CW, C::RES>(res, 64 * w, kk),
+                            hopper::desc_kmajor<C::CW, C::STREAM>(tile, 0, kk), kk > 0);
+}
+
+// acc[64 x D] += A[64 x 64] (registers) . (a streamed tile, 64 x D)
+template <int D>
+__device__ __forceinline__ void grad_product(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                             uint32_t tile) {
+  using C = Bwd<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_t_wide<D, C::CW, C::STREAM>(acc, a[kk], tile, kk);
+}
+
+// the A fragments (K = 64 in 4 steps of 16) of a 64 x 64 wgmma accumulator,
+// rounded to bf16: per warp the accumulator has mma.sync's C layout and
+// wgmma's register A has mma.sync's A layout
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&c)[32]) {
+  const auto& strip = reinterpret_cast<const float(&)[8][4]>(c);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) c_to_a(a[kk], strip, kk);
+}
+
+// a consumer thread's two rows (g and g + 8 of its warp's 16) of a 64 x D
+// accumulator as bf16; rows at or past S are not written
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], int row_g, int S, bf16* dst,
+                                          Strides st, int b, int h) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_g + 8 * half;
+    if (row >= S) continue;
+    bf16* out = dst + b * st.b + (long long)row * st.s + h * st.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+}
+
+// The block's (head, tile): the tiles of one head go to neighbouring blocks,
+// so the blocks running together stream the same head's tiles through L2.
+__device__ __forceinline__ void block_tile(int& bh, int& tile) {
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  tile = lin % gridDim.y;
+  bh = lin / gridDim.y;
+}
+
 // ----------------------------------------------------------- backward dK/dV
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-                          Strides sdo, Strides sdk, Strides sdv, int S, int H, float scale) {
-  constexpr int LDH = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + 64 * LDH;
-  bf16* sQ = sV + 64 * LDH;
-  bf16* sDO = sQ + 64 * LDH;
-  float* sLse = reinterpret_cast<float*>(sDO + 64 * LDH);
-  float* sDelta = sLse + 64;
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, Strides sdk, Strides sdv, int S, int H,
+                          float scale) {
+  using C = Bwd<D>;
+  extern __shared__ unsigned char smem[];
+  const BwdSmem<D> sm(smem);
+  int bh, kt;
+  block_tile(bh, kt);
+  const int b = bh / H, h = bh % H;
+  const int k0 = kt * C::RES;
+  const int n_tiles = (S + C::STREAM - 1) / C::STREAM;
+  sm.init_barriers();
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;  // this warp's key rows within the tile
-  const int key0 = k0 + r0 + g, key1 = key0 + 8;
-  const bool kok0 = key0 < S, kok1 = key1 < S;
-  const float kb0 = kok0 ? bias[(long long)b * S + key0] : 0.0f;
-  const float kb1 = kok1 ? bias[(long long)b * S + key1] : 0.0f;
-
-  load_tile<D>(sK, k, sk, b, h, k0, S);
-  load_tile<D>(sV, v, sv, b, h, k0, S);
-
-  float acc_dv[D / 8][4], acc_dk[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc_dv[j][0] = acc_dv[j][1] = acc_dv[j][2] = acc_dv[j][3] = 0.0f;
-    acc_dk[j][0] = acc_dk[j][1] = acc_dk[j][2] = acc_dk[j][3] = 0.0f;
-  }
-
-  const int n_tiles = (S + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<D>(sQ, q, sq, b, h, q0, S);
-    load_tile<D>(sDO, dout, sdo, b, h, q0, S);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const bool ok = q0 + i < S;
-      sLse[i] = ok ? lse[(long long)bh * S + q0 + i] : 0.0f;
-      sDelta[i] = ok ? delta[(long long)bh * S + q0 + i] : 0.0f;
-    }
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];  // S^T and dP^T: key rows x query columns
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.0f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
-    }
-    strip_abt<D>(st, sK, r0, sQ);    // S^T = K . Q^T
-    strip_abt<D>(dpt, sV, r0, sDO);  // dP^T = V . dO^T
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool qok = q0 + col < S;
-        const float row_lse = sLse[col], row_delta = sDelta[col];
-        const float p0 = (kok0 && qok) ? expf(st[j][e] * scale + kb0 - row_lse) : 0.0f;
-        const float p1 = (kok1 && qok) ? expf(st[j][2 + e] * scale + kb1 - row_lse) : 0.0f;
-        dpt[j][e] = p0 * (dpt[j][e] - row_delta) * scale;
-        dpt[j][2 + e] = p1 * (dpt[j][2 + e] - row_delta) * scale;
-        st[j][e] = p0;
-        st[j][2 + e] = p1;
+  if (threadIdx.x < 128) {
+    // producer: warp 0 keeps the ring full; the other warps leave
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) load_resident<D>(sm, &tm_k, &tm_v, b, h, k0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      const int q0 = it * C::STREAM;
+      hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
+      if (lane == 0) load_stream<D>(sm, s, &tm_q, &tm_do, b, h, q0);
+      float* r_lse = sm.row(s, 0);
+      float* r_delta = sm.row(s, 1);
+      for (int i = lane; i < C::STREAM; i += 32) {
+        const int q = q0 + i;
+        // a query past S: lse +inf gives p = 0 for every key
+        r_lse[i] = q < S ? lse[(long long)bh * S + q] : pos_infinity();
+        r_delta[i] = q < S ? delta[(long long)bh * S + q] : 0.0f;
       }
+      hopper::mbar_arrive(sm.full(s));
     }
-    strip_pm<D>(acc_dv, st, sDO);  // dV += P^T . dO  (P^T rounded to bf16)
-    strip_pm<D>(acc_dk, dpt, sQ);  // dK += dS^T . Q  (dS^T rounded to bf16)
-  }
+  } else {
+    // consumers: warpgroup w owns key rows [k0 + 64 w, +64) of dK and dV
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int w = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = k0 + 64 * w + 16 * warp + g, key1 = key0 + 8;
+    // a key past S: bias -inf gives p = 0 for every query
+    const float kb0 = key0 < S ? bias[(long long)b * S + key0] : neg_infinity();
+    const float kb1 = key1 < S ? bias[(long long)b * S + key1] : neg_infinity();
 
-  const int row_g = k0 + r0 + g;
-  store_rows<D>(acc_dv, row_g, S, dv, sdv, b, h);
-  store_rows<D>(acc_dk, row_g, S, dk, sdk, b, h);
+    float acc_dv[D / 2], acc_dk[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dv[i] = acc_dk[i] = 0.0f;
+
+    hopper::mbar_wait(sm.res_bar(), 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      hopper::mbar_wait(sm.full(s), (it / C::STAGES) & 1);
+      const uint32_t sQ = sm.tile(s, 0), sDO = sm.tile(s, 1);
+      const float* r_lse = sm.row(s, 0);
+      const float* r_delta = sm.row(s, 1);
+
+      float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 queries
+      hopper::wgmma_fence();
+      score_product<D>(st, sm.res(0), w, sQ);  // S^T = K . Q^T
+      hopper::wgmma_commit();
+      score_product<D>(dpt, sm.res(1), w, sDO);  // dP^T = V . dO^T
+      hopper::wgmma_commit();
+
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(r_lse + 8 * j + 2 * t);
+        st[4 * j + 0] = hopper::exp2_approx((fmaf(st[4 * j + 0], scale, kb0) - l.x) * LOG2E);
+        st[4 * j + 1] = hopper::exp2_approx((fmaf(st[4 * j + 1], scale, kb0) - l.y) * LOG2E);
+        st[4 * j + 2] = hopper::exp2_approx((fmaf(st[4 * j + 2], scale, kb1) - l.x) * LOG2E);
+        st[4 * j + 3] = hopper::exp2_approx((fmaf(st[4 * j + 3], scale, kb1) - l.y) * LOG2E);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(r_delta + 8 * j + 2 * t);
+        dpt[4 * j + 0] = st[4 * j + 0] * (dpt[4 * j + 0] - dl.x) * scale;
+        dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - dl.y) * scale;
+        dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - dl.x) * scale;
+        dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - dl.y) * scale;
+      }
+      uint32_t pa[4][4], dsa[4][4];  // P^T and dS^T as bf16 A fragments
+      acc_to_a(pa, st);
+      acc_to_a(dsa, dpt);
+
+      hopper::wgmma_fence();
+      grad_product<D>(acc_dv, pa, sDO);  // dV += P^T . dO
+      grad_product<D>(acc_dk, dsa, sQ);  // dK += dS^T . Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc_dv);
+      hopper::fence_regs(acc_dk);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(dsa);
+      hopper::mbar_arrive(sm.empty(s));
+    }
+
+    store_acc<D>(acc_dv, key0, S, dv, sdv, b, h);
+    store_acc<D>(acc_dk, key0, S, dk, sdk, b, h);
+  }
 }
 
 // -------------------------------------------------------------- backward dQ
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const float* __restrict__ bias,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const bf16* __restrict__ dout, bf16* __restrict__ dq, Strides sq,
-                        Strides sk, Strides sv, Strides sdo, Strides sdq, int S, int H,
-                        float scale) {
-  constexpr int LDH = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + 64 * LDH;
-  bf16* sK = sDO + 64 * LDH;
-  bf16* sV = sK + 64 * LDH;
-  float* sBias = reinterpret_cast<float*>(sV + 64 * LDH);
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ bias, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, Strides sdq,
+                        int S, int H, float scale) {
+  using C = Bwd<D>;
+  extern __shared__ unsigned char smem[];
+  const BwdSmem<D> sm(smem);
+  int bh, qt;
+  block_tile(bh, qt);
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * C::RES;
+  const int n_tiles = (S + C::STREAM - 1) / C::STREAM;
+  sm.init_barriers();
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;  // this warp's query rows within the tile
-  const int qr0 = q0 + r0 + g, qr1 = qr0 + 8;
-  const bool qok0 = qr0 < S, qok1 = qr1 < S;
-  const float lse0 = qok0 ? lse[(long long)bh * S + qr0] : 0.0f;
-  const float lse1 = qok1 ? lse[(long long)bh * S + qr1] : 0.0f;
-  const float delta0 = qok0 ? delta[(long long)bh * S + qr0] : 0.0f;
-  const float delta1 = qok1 ? delta[(long long)bh * S + qr1] : 0.0f;
-
-  load_tile<D>(sQ, q, sq, b, h, q0, S);
-  load_tile<D>(sDO, dout, sdo, b, h, q0, S);
-
-  float acc_dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc_dq[j][0] = acc_dq[j][1] = acc_dq[j][2] = acc_dq[j][3] = 0.0f;
-
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(sK, k, sk, b, h, k0, S);
-    load_tile<D>(sV, v, sv, b, h, k0, S);
-    for (int i = threadIdx.x; i < BK; i += NTHREADS)
-      sBias[i] = (k0 + i < S) ? bias[(long long)b * S + k0 + i] : 0.0f;
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-    strip_abt<D>(s, sQ, r0, sK);    // S = Q . K^T
-    strip_abt<D>(dp, sDO, r0, sV);  // dP = dO . V^T
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool kok = k0 + col < S;
-        const float kb = sBias[col];
-        const float p0 = (qok0 && kok) ? expf(s[j][e] * scale + kb - lse0) : 0.0f;
-        const float p1 = (qok1 && kok) ? expf(s[j][2 + e] * scale + kb - lse1) : 0.0f;
-        dp[j][e] = p0 * (dp[j][e] - delta0) * scale;
-        dp[j][2 + e] = p1 * (dp[j][2 + e] - delta1) * scale;
+  if (threadIdx.x < 128) {
+    // producer: warp 0 keeps the ring full; the other warps leave
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) load_resident<D>(sm, &tm_q, &tm_do, b, h, q0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      const int k0 = it * C::STREAM;
+      hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
+      if (lane == 0) load_stream<D>(sm, s, &tm_k, &tm_v, b, h, k0);
+      float* r_bias = sm.row(s, 0);
+      for (int i = lane; i < C::STREAM; i += 32) {
+        const int k = k0 + i;
+        // a key past S: bias -inf gives p = 0 for every query
+        r_bias[i] = k < S ? bias[(long long)b * S + k] : neg_infinity();
       }
+      hopper::mbar_arrive(sm.full(s));
     }
-    strip_pm<D>(acc_dq, dp, sK);  // dQ += dS . K  (dS rounded to bf16)
-  }
+  } else {
+    // consumers: warpgroup w owns query rows [q0 + 64 w, +64) of dQ
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int w = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qr0 = q0 + 64 * w + 16 * warp + g, qr1 = qr0 + 8;
+    // a query past S: lse +inf gives p = 0 for every key
+    const float lse0 = qr0 < S ? lse[(long long)bh * S + qr0] : pos_infinity();
+    const float lse1 = qr1 < S ? lse[(long long)bh * S + qr1] : pos_infinity();
+    const float delta0 = qr0 < S ? delta[(long long)bh * S + qr0] : 0.0f;
+    const float delta1 = qr1 < S ? delta[(long long)bh * S + qr1] : 0.0f;
 
-  store_rows<D>(acc_dq, q0 + r0 + g, S, dq, sdq, b, h);
+    float acc_dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.0f;
+
+    hopper::mbar_wait(sm.res_bar(), 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      hopper::mbar_wait(sm.full(s), (it / C::STAGES) & 1);
+      const uint32_t sK = sm.tile(s, 0), sV = sm.tile(s, 1);
+      const float* r_bias = sm.row(s, 0);
+
+      float sc[32], dp[32];  // S and dP: 64 queries x 64 keys
+      hopper::wgmma_fence();
+      score_product<D>(sc, sm.res(0), w, sK);  // S = Q . K^T
+      hopper::wgmma_commit();
+      score_product<D>(dp, sm.res(1), w, sV);  // dP = dO . V^T
+      hopper::wgmma_commit();
+
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kb = *reinterpret_cast<const float2*>(r_bias + 8 * j + 2 * t);
+        sc[4 * j + 0] = hopper::exp2_approx((fmaf(sc[4 * j + 0], scale, kb.x) - lse0) * LOG2E);
+        sc[4 * j + 1] = hopper::exp2_approx((fmaf(sc[4 * j + 1], scale, kb.y) - lse0) * LOG2E);
+        sc[4 * j + 2] = hopper::exp2_approx((fmaf(sc[4 * j + 2], scale, kb.x) - lse1) * LOG2E);
+        sc[4 * j + 3] = hopper::exp2_approx((fmaf(sc[4 * j + 3], scale, kb.y) - lse1) * LOG2E);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dp[4 * j + 0] = sc[4 * j + 0] * (dp[4 * j + 0] - delta0) * scale;
+        dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - delta0) * scale;
+        dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - delta1) * scale;
+        dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - delta1) * scale;
+      }
+      uint32_t dsa[4][4];  // dS as bf16 A fragments
+      acc_to_a(dsa, dp);
+
+      hopper::wgmma_fence();
+      grad_product<D>(acc_dq, dsa, sK);  // dQ += dS . K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc_dq);
+      hopper::fence_regs(dsa);
+      hopper::mbar_arrive(sm.empty(s));
+    }
+
+    store_acc<D>(acc_dq, qr0, S, dq, sdq, b, h);
+  }
 }
 
 // ------------------------------------------------------------------ launch
@@ -518,20 +718,36 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float*
   return cudaGetLastError();
 }
 
+// the four bf16 [B, S, H, D] tensor maps of a backward launch (64-row boxes)
+template <int D>
+bool encode_bwd_maps(CUtensorMap (&maps)[4], const bf16* q, const bf16* k, const bf16* v,
+                     const bf16* dout, Strides sq, Strides sk, Strides sv, Strides sdo, int B,
+                     int S, int H) {
+  constexpr int CW = Bwd<D>::CW, ROWS = Bwd<D>::STREAM;
+  return hopper::encode_bshd<CW, ROWS>(&maps[0], q, B, S, H, D, sq.b, sq.s, sq.h) &&
+         hopper::encode_bshd<CW, ROWS>(&maps[1], k, B, S, H, D, sk.b, sk.s, sk.h) &&
+         hopper::encode_bshd<CW, ROWS>(&maps[2], v, B, S, H, D, sv.b, sv.s, sv.h) &&
+         hopper::encode_bshd<CW, ROWS>(&maps[3], dout, B, S, H, D, sdo.b, sdo.s, sdo.h);
+}
+
 template <int D>
 cudaError_t launch_bwd_dkdv(const bf16* q, const bf16* k, const bf16* v, const float* bias,
                             const float* lse, const float* delta, const bf16* dout, bf16* dk,
                             bf16* dv, Strides sq, Strides sk, Strides sv, Strides sdo,
                             Strides sdk, Strides sdv, int B, int S, int H, float scale,
                             cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<D>();
+  constexpr int smem = Bwd<D>::SMEM;
   // raised once per instantiation (not per launch, so launches can be
   // captured into a CUDA graph)
   static const cudaError_t limit = set_smem_limit(flash_bwd_dkdv_kernel<D>, smem);
   if (limit != cudaSuccess) return limit;
-  dim3 grid(B * H, (S + BK - 1) / BK);
-  flash_bwd_dkdv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, bias, lse, delta, dout, dk, dv, sq, sk, sv, sdo, sdk, sdv, S, H, scale);
+  // the maps go by value as kernel parameters, so a captured graph keeps them
+  CUtensorMap maps[4];
+  if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
+    return cudaErrorInvalidValue;
+  dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
+  flash_bwd_dkdv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dk, dv, sdk, sdv, S, H, scale);
   return cudaGetLastError();
 }
 
@@ -540,15 +756,15 @@ cudaError_t launch_bwd_dq(const bf16* q, const bf16* k, const bf16* v, const flo
                           const float* lse, const float* delta, const bf16* dout, bf16* dq,
                           Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int B,
                           int S, int H, float scale, cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<D>();
-  // raised once per instantiation (not per launch, so launches can be
-  // captured into a CUDA graph)
+  constexpr int smem = Bwd<D>::SMEM;
   static const cudaError_t limit = set_smem_limit(flash_bwd_dq_kernel<D>, smem);
   if (limit != cudaSuccess) return limit;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, bias, lse, delta, dout,
-                                                           dq, sq, sk, sv, sdo, sdq, S, H,
-                                                           scale);
+  CUtensorMap maps[4];
+  if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
+    return cudaErrorInvalidValue;
+  dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
+  flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dq, sdq, S, H, scale);
   return cudaGetLastError();
 }
 

@@ -10,11 +10,13 @@ Three kernels, in ``csrc/flash_attention.cu`` (built by ``_build.py``):
 
 - ``flash_fwd``: replaces ``_fwd_kernel`` (the ``pallas_call`` in ``_fwd``).
   Writes ``out`` and ``lse = m + log(max(l, 1e-30))``.
-- ``flash_bwd_dkdv`` and ``flash_bwd_dq``: tiled over 64-row key and query
-  tiles at any S, they replace both backward paths of ``_bwd``: the split
+- ``flash_bwd_dkdv`` and ``flash_bwd_dq``: one block per 128-row key
+  (dK/dV) or query (dQ) tile, streaming 64-row tiles of the other side at
+  any S, they replace both backward paths of ``_bwd``: the split
   ``_dkv_kernel``/``_dq_kernel`` pair that JAX runs when S exceeds its block
   (the S=16,384 long-context step) and the single-tile
-  ``_dqkv_fused_kernel`` it runs otherwise (the seq-512 step).
+  ``_dqkv_fused_kernel`` it runs otherwise (the seq-512 step). Their
+  products run on ``wgmma`` fed by a TMA ring (``csrc/hopper.cuh``).
   ``delta = rowsum(dO * out)`` is computed outside the kernels in fp32, as
   the JAX custom VJP does.
 
@@ -40,6 +42,9 @@ from dedloc_tpu_torch.utils.device import on_card
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+FWD_TILE = 64  # query rows per forward block
+BWD_TILE = 128  # key (dK/dV) or query (dQ) rows per backward block
+MAX_GRID_Y = 65535  # the grids are (B*H, tiles): y is at most 65535
 
 
 # ------------------------------------------------------------ plain versions
@@ -141,13 +146,16 @@ def _check_f32(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_common(q, k, v, bias):
+def _check_common(q, k, v, bias, tile: int):
+    """Shapes, types and strides the kernels take, for a grid of ``tile``-row
+    blocks along S; returns (B, S, H, D)."""
     b, s, h, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} unsupported: the kernel takes "
                          f"{SUPPORTED_HEAD_DIMS}")
-    if -(-s // 64) > 65535:  # grid (B*H, S/64): y is at most 65535 tiles
-        raise ValueError(f"S={s}: the kernels take at most 65535 tiles of 64")
+    if -(-s // tile) > MAX_GRID_Y:
+        raise ValueError(f"S={s}: the kernel takes at most {MAX_GRID_Y} "
+                         f"tiles of {tile}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_bshd(name, t, (b, s, h, d))
     _check_f32("bias", bias, (b, s))
@@ -164,7 +172,7 @@ def flash_fwd(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     an fp32 ``[B, S]`` additive key bias."""
     if not on_card(q, "flash attention"):
         return flash_fwd_plain(q, k, v, bias)
-    b, s, h, d = _check_common(q, k, v, bias)
+    b, s, h, d = _check_common(q, k, v, bias, FWD_TILE)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s), device=q.device, dtype=torch.float32)
     keep = [_strides(t) for t in (q, k, v, out)]
@@ -183,7 +191,7 @@ def flash_bwd_dkdv(q, k, v, bias, lse, dout, delta):
     """(dk, dv), each ``[B, S, H, D]`` in the input dtype."""
     if not on_card(q, "flash attention"):
         return flash_bwd_dkdv_plain(q, k, v, bias, lse, dout, delta)
-    b, s, h, d = _check_common(q, k, v, bias)
+    b, s, h, d = _check_common(q, k, v, bias, BWD_TILE)
     _check_bshd("dout", dout, (b, s, h, d))
     _check_f32("lse", lse, (b * h, s))
     _check_f32("delta", delta, (b * h, s))
@@ -206,7 +214,7 @@ def flash_bwd_dq(q, k, v, bias, lse, dout, delta):
     """dq ``[B, S, H, D]`` in the input dtype."""
     if not on_card(q, "flash attention"):
         return flash_bwd_dq_plain(q, k, v, bias, lse, dout, delta)
-    b, s, h, d = _check_common(q, k, v, bias)
+    b, s, h, d = _check_common(q, k, v, bias, BWD_TILE)
     _check_bshd("dout", dout, (b, s, h, d))
     _check_f32("lse", lse, (b * h, s))
     _check_f32("delta", delta, (b * h, s))

@@ -103,3 +103,61 @@ def test_bias_gets_a_zero_gradient():
     bias = torch.tensor(inp["bias"]).requires_grad_()
     port.flash_attention(q, k, v, bias).sum().backward()
     assert bias.grad is not None and not bias.grad.any()
+
+
+def _assert_close_per_sample(got, want, tol, name):
+    """|got - want| <= tol * max|want[b]| + tol * |want| in every sample b, as
+    chip_smoke.py's check_per_sample: an all-padding sample's gradients are
+    hundreds of times a real sample's, so one atol for the batch would leave
+    the real samples unchecked."""
+    ref = np.abs(want)
+    atol = tol * ref.reshape(ref.shape[0], -1).max(axis=1).reshape(-1, 1, 1, 1)
+    err = np.abs(got - want)
+    bad = err > atol + tol * ref
+    assert not bad.any(), (f"{name}: {int(bad.sum())} elements beyond tolerance, "
+                           f"max abs err {err.max():.3e}")
+
+
+@pytest.mark.parametrize(
+    "s,block_q,block_k,mask",
+    [
+        # the fused single-tile backward (the S=512 path's JAX kernel)
+        (128, 128, 128, "none"),
+        (128, 128, 128, "padding"),
+        # the split dq / dk-dv backward (the S=16,384 path's JAX kernels)
+        (128, 32, 16, "none"),
+        (128, 32, 16, "padding"),
+    ],
+)
+def test_bfloat16_backward_matches_jax(s, block_q, block_k, mask):
+    """The port's plain backward in bf16 (the function the card's kernels
+    are held to) against JAX's flash_attention vjp in bf16, Pallas kernels
+    in interpret mode; bf16 tolerance of the forward test, per sample."""
+    inp = _inputs(5, s=s, mask=mask)
+    bias = jnp.asarray(inp["bias"])
+    qj, kj, vj, wj = (jnp.asarray(inp[n], jnp.bfloat16) for n in ("q", "k", "v", "w"))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, bias, block_q=block_q,
+                                               block_k=block_k), qj, kj, vj)
+    g_j = [np.asarray(g.astype(jnp.float32)) for g in vjp(wj)]
+
+    qt, kt, vt = (torch.tensor(inp[n]).bfloat16().requires_grad_() for n in ("q", "k", "v"))
+    out = port.flash_attention(qt, kt, vt, torch.tensor(inp["bias"]))
+    g_t = torch.autograd.grad(out, (qt, kt, vt), torch.tensor(inp["w"]).bfloat16())
+    for got, want, name in zip(g_t, g_j, "qkv"):
+        assert got.dtype == torch.bfloat16
+        _assert_close_per_sample(got.float().numpy(), want, 3e-2, f"d{name}")
+
+
+@pytest.mark.parametrize("tile", [port.FWD_TILE, port.BWD_TILE])
+def test_check_common_limits_s_to_the_grid(tile):
+    """The grids are (B*H, S / tile) with y at most 65535: the wrappers'
+    check takes S up to 65535 tiles of the kernel's tile size and refuses
+    one row more. It reads only metadata, so CPU tensors stand in."""
+    def inputs(s):
+        x = torch.empty((1, 1, 1, 64), dtype=torch.bfloat16).expand(1, s, 1, 64)
+        return x, x, x, torch.empty((1, s), dtype=torch.float32)
+
+    most = port.MAX_GRID_Y * tile
+    assert port._check_common(*inputs(most), tile) == (1, most, 1, 64)
+    with pytest.raises(ValueError, match=f"at most {port.MAX_GRID_Y} tiles of {tile}"):
+        port._check_common(*inputs(most + 1), tile)

@@ -16,15 +16,18 @@ Phases (any failure exits non-zero):
               all-padding sample, and flash [2, 16384, 16, 64] bf16 (one
               sample with every key, one with keys from 12,288 on masked;
               its plain versions run one head at a time: [B, H, S, S] fp32
-              is 17 GB per tensor); two launches of each backward kernel
+              is 17 GB per tensor); two launches of each flash kernel
               bitwise equal at both shapes; add+LN [6144, 1024] bf16; plus
               ragged cases at the tile edges (S=100, 200 and 16,320 at
-              D=64, S=200 at D=128) and every other supported head dim at
-              S=130. The flash tolerance scales with each sample's own
-              max |ref|. Device time per call (CUDA-graph replays between
-              CUDA events, median) of the kernel, the plain version and,
-              where one exists, the one PyTorch call computing the same
-              function (timed only, never used by the port).
+              D=64, S=200 at D=128), every other supported head dim at
+              S=130, and peaked attention at S=16,384 (q x 4: scores of
+              standard deviation 4). The flash tolerance scales with each
+              sample's own max |ref|; the mean signed error toward |ref|
+              shows a bias that the tolerance would pass. Device time per
+              call (CUDA-graph replays between CUDA events, median) of the
+              kernel, the plain version and, where one exists, the one
+              PyTorch call computing the same function (timed only, never
+              used by the port).
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
 5. path       ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
@@ -41,7 +44,10 @@ Phases (any failure exits non-zero):
               LAMB with warmup 0: 3 optimizer steps with the counters reset
               and checked (48/48/48/0/0 per step); 2 steps without remat,
               whose peak memory must be higher; one step under
-              torch.profiler.
+              torch.profiler. Then a witness that runs no kernel: the same
+              weights and batches for 2 steps with attention_impl=
+              "blockwise" (plain PyTorch, 0 launches); the flash run's
+              losses before the first update must agree with it.
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, the nvidia-smi line,
@@ -77,6 +83,14 @@ EXP_PER_S = 0.0  # set by phase_device
 FLASH_SHAPE = (12, 512, 16, 64)  # B, S, H, D of the S=512 path
 LONG_SEQ = 16384
 LONG_SHAPE = (2, LONG_SEQ, 16, 64)  # the long-context path's length
+# |flash - blockwise| allowed on the long-context losses before the first
+# update. The two differ only in attention's rounding (p rounded to bf16
+# against different running maxima). The MLM term averages 2,461 positions
+# and moved 1e-5 between them; the SOP term is one sample's at B=1 and
+# moved 1e-3 (PERF.md, Findings). A wrong tile, mask or scale, or a bias
+# in every row, moves the MLM term by far more than its limit.
+WITNESS_MLM_TOL = 1e-4
+WITNESS_LOSS_TOL = 5e-3
 LN_ROWS, LN_WIDTH = 12 * 512, 1024
 FLASH_SRC = "dedloc_tpu_torch/ops/csrc/flash_attention.cu"
 LN_SRC = "dedloc_tpu_torch/ops/fused_ln.py"
@@ -181,16 +195,19 @@ def check_per_sample(name: str, got, want, real) -> dict:
     log(l) in fp32, as in the reference), so one atol for the batch would
     leave the real samples unchecked. Returns the max abs err over all
     samples and, over the samples with keys (``real``, bool [B]), the max
-    abs err and the max and mean |ref|."""
+    abs err, the max and mean |ref|, and the mean signed error toward |ref|
+    (mean of (got - ref) * sign(ref): negative if got shrinks toward 0), a
+    bias far below the tolerance that still moves every row one way."""
     ref = want.float().abs()
     atol = 1e-2 * ref.amax(dim=tuple(range(1, ref.dim())), keepdim=True)
     worst = check_close(name, got, want, atol, 1e-2)
-    err = (got.float() - want.float()).abs()[real]
-    stats = dict(max_abs_err=float(err.max()), max_abs_ref=float(ref[real].max()),
-                 mean_abs_ref=float(ref[real].mean()))
+    diff = (got.float() - want.float())[real]
+    stats = dict(max_abs_err=float(diff.abs().max()), max_abs_ref=float(ref[real].max()),
+                 mean_abs_ref=float(ref[real].mean()),
+                 mean_signed_err=float((diff * want.float()[real].sign()).mean()))
     log(f"    samples with keys: max abs err {stats['max_abs_err']:.3e}, "
         f"max |ref| {stats['max_abs_ref']:.3e}, mean |ref| "
-        f"{stats['mean_abs_ref']:.3e}")
+        f"{stats['mean_abs_ref']:.3e}, mean signed err {stats['mean_signed_err']:.3e}")
     return dict(all=worst, real=stats)
 
 
@@ -329,19 +346,24 @@ def _check_flash(tag, q, k, v, dout, bias, group=None) -> dict:
 
 
 def _check_repeat(tag, q, k, v, bias, lse, dout, delta) -> bool:
-    """Two launches of each backward kernel on the same inputs give
-    bitwise-equal outputs (every output tile has one owner, no atomics)."""
+    """Two launches of each flash kernel on the same inputs give
+    bitwise-equal outputs (every output row has one owner, no atomics)."""
     from dedloc_tpu_torch.ops import flash_attention as fa
 
-    first = (*fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
-             fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
-    second = (*fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
-              fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
-    for name, a, b in zip(("dk", "dv", "dq"), first, second):
+    def launch():
+        return (*fa.flash_fwd(q, k, v, bias),
+                *fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
+                fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
+
+    first, second = launch(), launch()
+    names = ("flash_fwd out", "flash_fwd lse", "flash_bwd dk", "flash_bwd dv",
+             "flash_bwd dq")
+    for name, a, b in zip(names, first, second):
         if not torch.equal(a, b):
-            fail(f"{tag} flash_bwd {name}: two launches differ "
+            fail(f"{tag} {name}: two launches differ "
                  f"(max {float((a.float() - b.float()).abs().max()):.3e})")
-    log(f"  {tag} flash_bwd dk, dv, dq: two launches bitwise equal")
+    log(f"  {tag} flash_fwd out, lse and flash_bwd dk, dv, dq: two launches "
+        f"bitwise equal")
     return True
 
 
@@ -418,7 +440,7 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
              plain_ms=plain_ms(fa.flash_fwd_plain, q, k, v, bias),
              **attention_bound(4 * io + b * s * 4 + rows, 2, mm, n_exp),
              tensor_flops=2 * mm, library_ms=lib_fwd_ms, library="F.scaled_dot_product_attention",
-             **common),
+             bitwise_repeat=bitwise, **common),
         dict(name="flash_bwd_dkdv", replaces=replaces["flash_bwd_dkdv"],
              err=errs["flash_bwd_dkdv"],
              ms=cuda_ms(lambda: fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
@@ -489,6 +511,14 @@ def phase_kernels(seed: int) -> list:
     log(f"[kernels] flash attention S=130 at D={others}")
     for d in others:
         _check_flash(f"S=130 D={d}", *_flash_inputs(2, 130, 2, d, gen, [130, 61]))
+    # peaked attention at the long-context length: q x 4 (exact in bf16)
+    # gives scores of standard deviation 4, so a few keys carry each row
+    log("[kernels] flash attention peaked (q x 4) at [1, 16384, 4, 64]")
+    q, k, v, dout, bias = _flash_inputs(1, LONG_SEQ, 4, 64, gen, [LONG_SEQ])
+    _check_flash("S=16384 peaked", q * 4, k, v, dout, bias, group=1)
+    del q, k, v, dout, bias
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # fused add+LayerNorm at the S=512 path's [B*S, hidden]
     log("[kernels] fused add+LN at [6144, 1024] bf16")
@@ -629,7 +659,7 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
     state = TrainState.create(params, tx)
     batches = synthetic_mlm_batches(cfg, micro_batch, seq, seed)
     wrappers = fa.WRAPPERS + fl.WRAPPERS
-    losses = []
+    losses, parts = [], []  # per micro-batch: loss, and its (MLM, SOP) terms
 
     def optimizer_step() -> None:
         nonlocal state
@@ -638,6 +668,7 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
             batch = drop_collator_keys(next(batches), device="cuda")
             grad_acc, n_acc, metrics = accumulate(params, grad_acc, n_acc, batch)
             losses.append(metrics["loss"])
+            parts.append((metrics["mlm_loss"], metrics["sop_loss"]))
         state = apply(state, {k: g / n_acc for k, g in grad_acc.items()})
         torch.cuda.synchronize()
 
@@ -661,7 +692,10 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
     profile = profile_step(optimizer_step, trace) if trace else None
 
     losses = [float(x) for x in losses]
+    mlm_losses = [float(m) for m, _ in parts]
+    sop_losses = [float(s) for _, s in parts]
     log(f"  losses {losses}")
+    log(f"  MLM {mlm_losses}, SOP {sop_losses}")
     log(f"  launches per step {per_step}")
     log(f"  step ms {[round(t * 1e3, 2) for t in step_s]}, peak {peak} bytes")
     if not all(math.isfinite(x) for x in losses):
@@ -683,6 +717,7 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
         steps=steps, micro_batch=micro_batch, seq_length=seq,
         grad_accum=args.gradient_accumulation_steps, remat=cfg.remat,
         remat_policy=cfg.remat_policy, fused_ln=cfg.fused_ln, losses=losses,
+        mlm_losses=mlm_losses, sop_losses=sop_losses,
         first_loss_at_init=at_init, step_ms=[t * 1e3 for t in step_s],
         ms_per_step=ms, samples_per_s=samples / (ms / 1e3),
         tokens_per_s=samples * seq / (ms / 1e3),
@@ -720,7 +755,7 @@ def phase_path(seed: int, micro_batch: int = 12, seq: int = 512) -> dict:
                         seq, seed, expected)
     return dict(remat, no_remat={k: keep_all[k] for k in (
         "ms_per_step", "samples_per_s", "step_ms", "max_memory_allocated",
-        "losses", "launches_per_step")})
+        "losses", "mlm_losses", "sop_losses", "launches_per_step")})
 
 
 def phase_longctx(seed: int, seq: int = LONG_SEQ) -> dict:
@@ -743,9 +778,26 @@ def phase_longctx(seed: int, seq: int = LONG_SEQ) -> dict:
         fail(f"longctx: peak memory without remat "
              f"{keep_all['max_memory_allocated']} is not above the remat "
              f"run's {remat['max_memory_allocated']}")
-    return dict(remat, no_remat={k: keep_all[k] for k in (
-        "ms_per_step", "tokens_per_s", "step_ms", "max_memory_allocated",
-        "losses", "launches_per_step")})
+    # the witness: the same weights and batches with attention_impl=
+    # "blockwise" (ring_attention.blockwise_attention, plain PyTorch: fp32
+    # online softmax over 512-key blocks, p rounded to bf16 before p.V),
+    # so no kernel launches; 2 steps. Before the first update the two runs
+    # differ only in attention's rounding, so their losses must agree
+    cfg = dataclasses.replace(cfg, remat=True, attention_impl="blockwise")
+    witness = run_path("longctx, blockwise witness", cfg, _large(cfg, seed), 1,
+                       seq, seed, {k: 0 for k in expected}, steps=2)
+    for key, tol in (("mlm_losses", WITNESS_MLM_TOL), ("losses", WITNESS_LOSS_TOL)):
+        ours, theirs = remat[key][:2], witness[key][:2]
+        gap = max(abs(a - b) for a, b in zip(ours, theirs))
+        log(f"  flash vs blockwise {key} before the first update: {gap:.3e} "
+            f"(tol {tol:.0e})")
+        if not gap <= tol:
+            fail(f"longctx: flash {key} {ours} vs blockwise {theirs}: "
+                 f"{gap:.3e} > {tol:.0e}")
+    keep = ("ms_per_step", "tokens_per_s", "step_ms", "max_memory_allocated",
+            "losses", "mlm_losses", "sop_losses", "launches_per_step")
+    return dict(remat, no_remat={k: keep_all[k] for k in keep},
+                blockwise_witness={k: witness[k] for k in keep})
 
 
 def _kind(name: str) -> str:

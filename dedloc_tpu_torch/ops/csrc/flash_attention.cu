@@ -21,44 +21,56 @@
 // Keys or queries past S in the last (ragged) tile get probability exactly 0;
 // their outputs are not written.
 //
-// Forward. At the ALBERT-large slice (B=12, S=512, H=16, D=64) it moves
-// ~50 MB and does ~13 GFLOP, so bytes and tensor-core operations are nearly
-// balanced (~15 us each). The TPU grid ran the KV axis sequentially and
-// carried (acc, m, l) in VMEM scratch; here one block owns one (batch*head,
-// 64-query tile) and loops over 64-key tiles itself, each of its 4 warps
-// owning 16 query rows on mma.sync m16n8k16 with ldmatrix operands, scores
-// and accumulators in registers.
+// All three kernels share one block shape. A block is three warpgroups: one
+// producer warp and two consumer warpgroups of 64 resident rows each
+// (setmaxnreg moves registers from the producer to the consumers). The
+// resident tile (Q for the forward and dQ, K and V for dK/dV; 128 rows) is
+// loaded once by TMA and stays in shared memory; the streamed tiles arrive
+// through a ring of STAGES buffers filled by TMA (cp.async.bulk.tensor, 4-D
+// tensor maps over (D, H, S, B) built from the strides, zero fill past S)
+// and handed over with mbarriers, so the copy of the next tiles overlaps the
+// products on the current one; the fp32 rows (bias, lse, delta) are loaded
+// by the producer's lanes, with bias -inf (keys) or lse +inf (queries) past
+// S, so p is exactly 0 there. Every product is a warpgroup wgmma (m64nNk16,
+// bf16 x bf16 -> fp32), the only instruction that reaches the tensor cores'
+// full rate: score products read both operands from shared memory
+// (K-major); the products with P (or P^T, dS, dS^T) take it from registers,
+// converted in place from the fp32 accumulator, and B from a streamed tile
+// with the transpose bit (MN-major). Shared tiles use wgmma's swizzled
+// layouts (128-byte swizzle at D=64; hopper.cuh). Exps are ex2.approx on
+// (s * scale + bias - m) * log2(e), the difference taken first in fp32 as
+// the reference does. Each output row has one owner: no atomics, and
+// repeated runs are bitwise equal. The blocks of one head are neighbours in
+// launch order, so the blocks running together stream that head through L2.
+//
+// Forward. Per score it does two S x S x D products (S = Q.K^T, O += P.V)
+// and one exp, against O(S*D) bytes per head: at [2, 16384, 16, 64] the
+// products need 2.22 ms of tensor-core time at 989 TFLOP/s and the exps
+// 2.05 ms of the special-function units (16 per clock per SM), so the two
+// nearly tie and the kernel is fast only if the exps run while the tensor
+// cores work. The TPU grid ran the KV axis sequentially and carried
+// (acc, m, l) in VMEM scratch; here each consumer warpgroup keeps O, m and
+// l of its 64 query rows in registers and loops over the key tiles (BK
+// keys, streamed with the bias row) with an online softmax. Two schedules
+// overlap the exps with the products: within a warpgroup the loop is
+// rotated, so iteration j issues S_j = Q.K_j^T and O += P_{j-1}.V_{j-1}
+// together and turns S_j into P_j while P_{j-1}.V_{j-1} is still on the
+// tensor cores; across warpgroups the two issue their products in turns
+// (named barriers), so one's softmax runs while the other's products do.
+// With 128-key tiles the two together were the fastest of the schedules
+// measured (PERF.md, Findings).
 //
 // Backward. The fused TPU backward kept one 512x512 fp32 score tile per head
 // in VMEM (1 MB), which does not fit in 227 KB of shared memory, so the
 // backward is two kernels that recompute p = exp(s - lse): dK/dV with one
 // block per 128-key tile looping over 64-query tiles, and dQ with one block
-// per 128-query tile looping over 64-key tiles. Each output tile has one
-// owner: no atomics, and repeated runs are bitwise equal.
+// per 128-query tile looping over 64-key tiles.
 // - What bounds them: operations. Per score, dK/dV does 4 products (S^T =
 //   K.Q^T, dP^T = V.dO^T, dV += P^T.dO, dK += dS^T.Q) and dQ 3 (S = Q.K^T,
 //   dP = dO.V^T, dQ += dS.K), 2 D flops each on the bf16 tensor cores, plus
 //   one exp per score on the special-function units; HBM traffic is O(S*D)
 //   per head. At [2, 16384, 16, 64] that is 4.45 and 3.34 ms of tensor-core
 //   time at 989 TFLOP/s, against ~0.02 ms of bytes.
-// - What the design does about it: every product is a warpgroup wgmma
-//   (m64nNk16, bf16 x bf16 -> fp32), the only instruction that reaches the
-//   tensor cores' full rate. A block is three warpgroups: one producer warp
-//   and two consumer warpgroups of 64 resident rows each (setmaxnreg moves
-//   registers from the producer to the consumers). The resident tile (K and V
-//   for dK/dV, Q and dO for dQ; 128 rows) is loaded once by TMA and stays in
-//   shared memory; the streamed tiles (Q, dO, lse, delta for dK/dV; K, V and
-//   the bias row for dQ) arrive through a ring of STAGES buffers filled by
-//   TMA (cp.async.bulk.tensor, 4-D tensor maps over (D, H, S, B) built from
-//   the strides, zero fill past S) and handed over with mbarriers, so the
-//   copy of the next tiles overlaps the products on the current one. The
-//   score products read both operands from shared memory (K-major); the
-//   gradient products take P^T / dS^T (or dS) from registers, converted in
-//   place from the fp32 accumulator, and B from the same streamed tile with
-//   the transpose bit (MN-major). Shared tiles use wgmma's swizzled layouts
-//   (128-byte swizzle at D=64; hopper.cuh). Exps are ex2.approx on
-//   (s * scale + bias - lse) * log2(e), the difference taken first in fp32 as
-//   the reference does.
 // - What still holds them back (PERF.md, Findings): the exps (16 per clock per
 //   SM) and the other per-score work add to the products instead of hiding
 //   behind them; schedules that interleave the two warpgroups or pipeline
@@ -74,12 +86,12 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per tile
-constexpr int BK = 64;            // key rows per tile
-constexpr int NWARPS = 4;         // each warp owns 16 rows of a 64-row tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD_H = 8;          // bf16 row padding: 16-byte rows, conflict-free ldmatrix
-constexpr float NEG_INF = -1e30f; // the TPU kernel's initial running max
+constexpr float NEG_INF = -1e30f;  // the TPU kernel's initial running max
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 = 384 x 168 registers
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use (227 KB)
 
 // element strides of a [B, S, H, D] tensor whose last dimension is contiguous
 struct Strides {
@@ -87,66 +99,17 @@ struct Strides {
 };
 
 __device__ __forceinline__ float neg_infinity() { return __int_as_float(0xff800000); }
-
-// ---- tensor-core fragments (mma.sync m16n8k16, bf16 in, fp32 accumulate).
-// With g = lane / 4 and t = lane % 4, a thread holds
-//   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B 16x8:  b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g)
-//   C 16x8:  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// A fragment of rows [row0, +16), cols [col0, +16) of a row-major tile (ld LDH)
-template <int LDH>
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int row0, int col0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(r, tile + (row0 + lane % 16) * LDH + col0 + (lane / 16) * 8);
-}
-
-// B fragments of two 8-wide n tiles where B[k][n] = M[n0 + n][k0 + k]
-// (M row-major: n rows, k contiguous): r0, r1 for n tile 0; r2, r3 for tile 1
-template <int LDH>
-__device__ __forceinline__ void load_b_nk(uint32_t (&r)[4], const bf16* tile, int n0, int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(r, tile + (n0 + lane % 8 + (lane / 16) * 8) * LDH + k0 + ((lane / 8) % 2) * 8);
-}
-
-// B fragments of two 8-wide n tiles where B[k][n] = M[k0 + k][n0 + n]
-// (M row-major: k rows, n contiguous), through the transposing load
-template <int LDH>
-__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile, int k0, int n0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4_trans(r, tile + (k0 + lane % 16) * LDH + n0 + (lane / 16) * 8);
-}
+__device__ __forceinline__ float pos_infinity() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the A fragment of 16 columns [16 kk, +16) of a 16 x 64 C-layout strip
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[8][4], int kk) {
+// the A fragment (mma.sync's A layout per warp) of 16 columns [16 kk, +16)
+// of a C-layout strip of J 8-column groups
+template <int J>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[J][4], int kk) {
   a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
   a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
@@ -163,201 +126,63 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// rows [row0, row0+64) of head (b, h) into a padded shared tile; rows >= S are zero
+// bf16 columns per swizzled column chunk of a D-wide tile (hopper.cuh)
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, Strides st, int b,
-                                          int h, int row0, int S) {
-  constexpr int VEC = 8;  // bf16 per 16-byte vector
-  constexpr int VPR = D / VEC;
-  constexpr int LDH = D + PAD_H;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) {
-      val = *reinterpret_cast<const uint4*>(src + b * st.b + (long long)row * st.s +
-                                            h * st.h + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+constexpr int chunk_width() {
+  return D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
 }
 
-// acc[D/8][4] += P (16 x 64, C layout) . M (64 rows x D, row-major tile)
-template <int D>
-__device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                         const bf16* m) {
-  constexpr int LDH = D + PAD_H;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t fa[4];
-    c_to_a(fa, p, kk);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t fb[4];
-      load_b_kn<LDH>(fb, m, kk * 16, dp * 16);
-      mma16816(acc[2 * dp], fa, fb[0], fb[1]);
-      mma16816(acc[2 * dp + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return 3 * 64 * (D + PAD_H) * 2 + 64 * 4;
-}
-
-// ---------------------------------------------------------------- forward
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ lse, Strides sq, Strides sk,
-                     Strides sv, Strides so, int S, int H, float scale) {
-  constexpr int LDH = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + 64 * LDH;
-  bf16* sV = sK + 64 * LDH;
-  float* sBias = reinterpret_cast<float*>(sV + 64 * LDH);
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;  // this warp's query rows within the tile
-
-  load_tile<D>(sQ, q, sq, b, h, q0, S);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a<LDH>(qf[kk], sQ, r0, kk * 16);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;  // rows g and g+8
-
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, k, sk, b, h, k0, S);
-    load_tile<D>(sV, v, sv, b, h, k0, S);
-    for (int i = threadIdx.x; i < BK; i += NTHREADS)
-      sBias[i] = (k0 + i < S) ? bias[(long long)b * S + k0 + i] : 0.0f;
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t fb[4];
-        load_b_nk<LDH>(fb, sK, np * 16, kk * 16);
-        mma16816(s[2 * np], qf[kk], fb[0], fb[1]);
-        mma16816(s[2 * np + 1], qf[kk], fb[2], fb[3]);
-      }
-    }
-
-    // online softmax over this key tile; keys past S get probability 0
-    float mx0 = neg_infinity(), mx1 = neg_infinity();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool ok = k0 + col < S;
-        const float kb = sBias[col];
-        s[j][e] = ok ? s[j][e] * scale + kb : neg_infinity();
-        s[j][2 + e] = ok ? s[j][2 + e] * scale + kb : neg_infinity();
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = expf(s[j][e] - mn0);
-        s[j][2 + e] = expf(s[j][2 + e] - mn1);
-        sum0 += s[j][e];
-        sum1 += s[j][2 + e];
-      }
-    }
-    l0 = l0 * corr0 + quad_sum(sum0);
-    l1 = l1 * corr1 + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= corr0;
-      o[j][1] *= corr0;
-      o[j][2] *= corr1;
-      o[j][3] *= corr1;
-    }
-    strip_pm<D>(o, s, sV);  // P rounded to bf16 before P.V
-  }
-
-  // out = acc / max(l, 1e-30) (a division, as the TPU kernel), lse = m + log(max(l, 1e-30))
-  const float sl0 = fmaxf(l0, 1e-30f), sl1 = fmaxf(l1, 1e-30f);
-  const int row_g = q0 + r0 + g;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row_g + 8 * half;
-    if (row >= S) continue;
-    const float sl = half ? sl1 : sl0;
-    bf16* dst = out + b * so.b + (long long)row * so.s + h * so.h;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + j * 8 + 2 * t) =
-          pack_bf16(o[j][2 * half] / sl, o[j][2 * half + 1] / sl);
-    if (t == 0) lse[(long long)bh * S + row] = (half ? m1 : m0) + logf(sl);
-  }
-}
-
-// ---------------------------------------------------------------- backward
-
-constexpr int BWD_THREADS = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 = 384 x 168 registers
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float pos_infinity() { return __int_as_float(0x7f800000); }
-
-// Shared memory of a backward block, from a 1024-byte aligned base: two
-// resident tiles of RES rows, STAGES ring slots of two streamed tiles of
-// STREAM rows and two fp32 rows of STREAM, then the mbarriers.
-template <int D>
-struct Bwd {
-  static constexpr int CW = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;  // swizzle row, bf16
-  static constexpr int RES = 128;   // resident rows: one 64-row slab per consumer warpgroup
-  static constexpr int STREAM = 64;  // rows per streamed tile
-  static constexpr int STAGES = 3;
+// Shared memory of a block, from a 1024-byte aligned base: NRES resident
+// tiles of RES rows, STAGES ring slots of two streamed tiles of STREAM rows
+// and NROWS fp32 rows of STREAM, then the mbarriers.
+template <int D, int NRES_, int STREAM_, int STAGES_, int NROWS_>
+struct Ring {
+  static constexpr int DIM = D;
+  static constexpr int CW = chunk_width<D>();
+  static constexpr int NRES = NRES_;
+  static constexpr int RES = 128;  // resident rows: one 64-row slab per consumer warpgroup
+  static constexpr int STREAM = STREAM_;  // rows per streamed tile
+  static constexpr int STAGES = STAGES_;
+  static constexpr int NROWS = NROWS_;
   static constexpr int RES_BYTES = RES * D * 2;
   static constexpr int TILE_BYTES = STREAM * D * 2;
   static constexpr int SLOT_BYTES = 2 * TILE_BYTES;
-  static constexpr int OFF_STREAM = 2 * RES_BYTES;
+  static constexpr int OFF_STREAM = NRES * RES_BYTES;
   static constexpr int OFF_ROWS = OFF_STREAM + STAGES * SLOT_BYTES;
-  static constexpr int OFF_BARS = OFF_ROWS + STAGES * 2 * STREAM * 4;
+  static constexpr int OFF_BARS = OFF_ROWS + STAGES * NROWS * STREAM * 4;
   static constexpr int SMEM = OFF_BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
   static_assert(RES_BYTES % 1024 == 0 && TILE_BYTES % 1024 == 0, "swizzle alignment");
+  static_assert(STREAM % 64 == 0, "streamed tiles are loaded as 64-row boxes");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
 };
+
+// the backward: two resident tiles, 64-row tiles of two tensors and two rows
+template <int D>
+using Bwd = Ring<D, 2, 64, 3, 2>;
+
+// The forward: Q resident, FWD_BK-key tiles of K and V and the bias row, as
+// many stages as fit (at most 4): Ring's layout is Q, the res barrier and
+// the alignment slack, then per stage K, V, the bias row and two barriers.
+constexpr int FWD_BK = 128;
+
+template <int D>
+constexpr int fwd_stages() {
+  const int fit =
+      (SMEM_LIMIT - (128 * D * 2 + 8 + 1024)) / (2 * FWD_BK * D * 2 + FWD_BK * 4 + 16);
+  return fit < 4 ? fit : 4;
+}
+
+template <int D>
+using Fwd = Ring<D, 1, FWD_BK, fwd_stages<D>(), 1>;
 
 // The block's shared memory and barriers: full[s] (the producer warp's 32
 // arrivals plus the TMA bytes of slot s), empty[s] (every consumer thread
 // done with slot s), res (the resident tiles' TMA bytes).
-template <int D>
-struct BwdSmem {
-  using C = Bwd<D>;
+template <typename C>
+struct RingSmem {
   uint32_t base;
   float* rows;
-  __device__ explicit BwdSmem(unsigned char* raw_ptr) {
+  __device__ explicit RingSmem(unsigned char* raw_ptr) {
     const uint32_t raw = hopper::smem_addr(raw_ptr);
     base = (raw + 1023u) & ~1023u;
     rows = reinterpret_cast<float*>(raw_ptr + (base - raw) + C::OFF_ROWS);
@@ -366,7 +191,7 @@ struct BwdSmem {
   __device__ uint32_t tile(int slot, int i) const {
     return base + C::OFF_STREAM + slot * C::SLOT_BYTES + i * C::TILE_BYTES;
   }
-  __device__ float* row(int slot, int i) const { return rows + (2 * slot + i) * C::STREAM; }
+  __device__ float* row(int slot, int i) const { return rows + (C::NROWS * slot + i) * C::STREAM; }
   __device__ uint32_t full(int slot) const { return base + C::OFF_BARS + 8 * slot; }
   __device__ uint32_t empty(int slot) const {
     return base + C::OFF_BARS + 8 * (C::STAGES + slot);
@@ -386,67 +211,70 @@ struct BwdSmem {
   }
 };
 
-// rows [row0, row0 + 128) of head (b, h) of two tensors into the resident
-// tiles, as 64-row boxes per column chunk (one thread)
-template <int D>
-__device__ __forceinline__ void load_resident(const BwdSmem<D>& sm, const CUtensorMap* m0,
+// rows [row0, row0 + 128) of head (b, h) of the NRES tensors (m0, then m1)
+// into the resident tiles, as 64-row boxes per column chunk (one thread)
+template <typename C>
+__device__ __forceinline__ void load_resident(const RingSmem<C>& sm, const CUtensorMap* m0,
                                               const CUtensorMap* m1, int b, int h, int row0) {
-  using C = Bwd<D>;
-  hopper::mbar_expect_tx(sm.res_bar(), 2 * C::RES_BYTES);
+  hopper::mbar_expect_tx(sm.res_bar(), C::NRES * C::RES_BYTES);
 #pragma unroll
-  for (int c = 0; c < D / C::CW; ++c)
+  for (int c = 0; c < C::DIM / C::CW; ++c)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const uint32_t off = c * C::RES * C::CW * 2 + half * 64 * C::CW * 2;
       hopper::tma_load_4d(sm.res(0) + off, m0, sm.res_bar(), c * C::CW, h, row0 + 64 * half, b);
-      hopper::tma_load_4d(sm.res(1) + off, m1, sm.res_bar(), c * C::CW, h, row0 + 64 * half, b);
+      if constexpr (C::NRES == 2)
+        hopper::tma_load_4d(sm.res(1) + off, m1, sm.res_bar(), c * C::CW, h, row0 + 64 * half,
+                            b);
     }
   hopper::mbar_arrive(sm.res_bar());
 }
 
-// rows [row0, row0 + 64) of head (b, h) of two tensors into ring slot s (one
-// thread; the slot's full barrier counts the bytes)
-template <int D>
-__device__ __forceinline__ void load_stream(const BwdSmem<D>& sm, int s, const CUtensorMap* m0,
+// rows [row0, row0 + STREAM) of head (b, h) of two tensors into ring slot s,
+// as 64-row boxes (one thread; the slot's full barrier counts the bytes)
+template <typename C>
+__device__ __forceinline__ void load_stream(const RingSmem<C>& sm, int s, const CUtensorMap* m0,
                                             const CUtensorMap* m1, int b, int h, int row0) {
-  using C = Bwd<D>;
   hopper::mbar_expect_tx(sm.full(s), C::SLOT_BYTES);
 #pragma unroll
-  for (int c = 0; c < D / C::CW; ++c) {
-    const uint32_t off = c * C::STREAM * C::CW * 2;
-    hopper::tma_load_4d(sm.tile(s, 0) + off, m0, sm.full(s), c * C::CW, h, row0, b);
-    hopper::tma_load_4d(sm.tile(s, 1) + off, m1, sm.full(s), c * C::CW, h, row0, b);
-  }
+  for (int c = 0; c < C::DIM / C::CW; ++c)
+#pragma unroll
+    for (int box = 0; box < C::STREAM / 64; ++box) {
+      const uint32_t off = c * C::STREAM * C::CW * 2 + box * 64 * C::CW * 2;
+      hopper::tma_load_4d(sm.tile(s, 0) + off, m0, sm.full(s), c * C::CW, h, row0 + 64 * box, b);
+      hopper::tma_load_4d(sm.tile(s, 1) + off, m1, sm.full(s), c * C::CW, h, row0 + 64 * box, b);
+    }
 }
 
 // S (or S^T, dP, dP^T) = rows [64 w, +64) of a resident tile . (a streamed
 // tile)^T over D: one wgmma per 16 columns, both operands K-major
-template <int D>
-__device__ __forceinline__ void score_product(float (&acc)[32], uint32_t res, int w,
+template <typename C>
+__device__ __forceinline__ void score_product(float (&acc)[C::STREAM / 2], uint32_t res, int w,
                                               uint32_t tile) {
-  using C = Bwd<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss_n64<0>(acc, hopper::desc_kmajor<C::CW, C::RES>(res, 64 * w, kk),
-                            hopper::desc_kmajor<C::CW, C::STREAM>(tile, 0, kk), kk > 0);
+  for (int kk = 0; kk < C::DIM / 16; ++kk)
+    hopper::wgmma_ss<C::STREAM>(acc, hopper::desc_kmajor<C::CW, C::RES>(res, 64 * w, kk),
+                                hopper::desc_kmajor<C::CW, C::STREAM>(tile, 0, kk), kk > 0);
 }
 
-// acc[64 x D] += A[64 x 64] (registers) . (a streamed tile, 64 x D)
-template <int D>
-__device__ __forceinline__ void grad_product(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+// acc[64 x D] += A[64 x STREAM] (registers) . (a streamed tile, STREAM x D)
+template <typename C>
+__device__ __forceinline__ void grad_product(float (&acc)[C::DIM / 2],
+                                             const uint32_t (&a)[C::STREAM / 16][4],
                                              uint32_t tile) {
-  using C = Bwd<D>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_t_wide<D, C::CW, C::STREAM>(acc, a[kk], tile, kk);
+  for (int kk = 0; kk < C::STREAM / 16; ++kk)
+    hopper::wgmma_rs_t_wide<C::DIM, C::CW, C::STREAM>(acc, a[kk], tile, kk);
 }
 
-// the A fragments (K = 64 in 4 steps of 16) of a 64 x 64 wgmma accumulator,
+// the A fragments (K = N in steps of 16) of a 64 x N wgmma accumulator,
 // rounded to bf16: per warp the accumulator has mma.sync's C layout and
 // wgmma's register A has mma.sync's A layout
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&c)[32]) {
-  const auto& strip = reinterpret_cast<const float(&)[8][4]>(c);
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+  const auto& strip = reinterpret_cast<const float(&)[N / 8][4]>(c);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) c_to_a(a[kk], strip, kk);
+  for (int kk = 0; kk < N / 16; ++kk) c_to_a(a[kk], strip, kk);
 }
 
 // a consumer thread's two rows (g and g + 8 of its warp's 16) of a 64 x D
@@ -475,10 +303,172 @@ __device__ __forceinline__ void block_tile(int& bh, int& tile) {
   bh = lin / gridDim.y;
 }
 
+// ---------------------------------------------------------------- forward
+
+// The online softmax of one BK-key tile for a consumer thread's two rows:
+// s = acc * scale + bias, m_new = max(m, rowmax s), p = exp(s - m_new) in
+// place, corr = exp(m - m_new); l (this thread's share of the row sum) =
+// l * corr + sum p. Keys past S have bias -inf and get p = 0.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const float* r_bias,
+                                               float scale, float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+  const int t = threadIdx.x % 4;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float2 kb = *reinterpret_cast<const float2*>(r_bias + 8 * j + 2 * t);
+    sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale, kb.x);
+    sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale, kb.y);
+    sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale, kb.x);
+    sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale, kb.y);
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    corr[r] = hopper::exp2_approx((m[r] - mx[r]) * LOG2E);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = hopper::exp2_approx((sc[4 * j + e] - m[e / 2]) * LOG2E);
+      sum[e / 2] += sc[4 * j + e];
+    }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+}
+
+// Consumer warpgroup w's turn to issue products: named barrier 1 + w, 128
+// threads of w waiting and 128 of the other arriving
+__device__ __forceinline__ void turn_wait(int w) { hopper::bar_sync<256>(1 + w); }
+__device__ __forceinline__ void turn_pass(int w) { hopper::bar_arrive<256>(2 - w); }
+
+// One block per (batch*head, 128-query tile). The two consumer warpgroups
+// issue their products in turns, and each waits only for S_j before its
+// softmax, so the softmax runs while P_{j-1}.V_{j-1} is in flight.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ lse, Strides so, int S, int H,
+                     float scale) {
+  using C = Fwd<D>;
+  constexpr int BK = FWD_BK;
+  extern __shared__ unsigned char smem[];
+  const RingSmem<C> sm(smem);
+  int bh, qt;
+  block_tile(bh, qt);
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * C::RES;
+  const int n_tiles = (S + BK - 1) / BK;
+  sm.init_barriers();
+
+  if (threadIdx.x < 128) {
+    // producer: warp 0 keeps the ring full; the other warps leave
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) load_resident(sm, &tm_q, nullptr, b, h, q0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      const int k0 = it * BK;
+      hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
+      if (lane == 0) load_stream(sm, s, &tm_k, &tm_v, b, h, k0);
+      float* r_bias = sm.row(s, 0);
+      for (int i = lane; i < BK; i += 32) {
+        const int k = k0 + i;
+        // a key past S: bias -inf gives p = 0 for every query
+        r_bias[i] = k < S ? bias[(long long)b * S + k] : neg_infinity();
+      }
+      hopper::mbar_arrive(sm.full(s));
+    }
+  } else {
+    // consumers: warpgroup w owns query rows [q0 + 64 w, +64)
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int w = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int row_g = q0 + 64 * w + 16 * warp + lane / 4;  // and row_g + 8
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float sc[BK / 2];         // S_j, then P_j in fp32
+    uint32_t pa[BK / 16][4];  // P_{j-1} as bf16 A fragments
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, corr[2];
+
+    hopper::mbar_wait(sm.res_bar(), 0);
+    if (w == 1) turn_pass(w);  // warpgroup 0 issues first
+
+    // tile 0: S_0 and its softmax
+    hopper::mbar_wait(sm.full(0), 0);
+    turn_wait(w);
+    hopper::wgmma_fence();
+    score_product<C>(sc, sm.res(0), w, sm.tile(0, 0));  // S_0 = Q . K_0^T
+    hopper::wgmma_commit();
+    turn_pass(w);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    online_softmax<BK>(sc, sm.row(0, 0), scale, m, l, corr);
+    acc_to_a<BK>(pa, sc);
+
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % C::STAGES;
+      const int prev = (it - 1) % C::STAGES;
+      hopper::mbar_wait(sm.full(s), (it / C::STAGES) & 1);
+      turn_wait(w);
+      hopper::wgmma_fence();
+      score_product<C>(sc, sm.res(0), w, sm.tile(s, 0));  // S_j = Q . K_j^T
+      hopper::wgmma_commit();
+      grad_product<C>(o, pa, sm.tile(prev, 1));  // O += P_{j-1} . V_{j-1}
+      hopper::wgmma_commit();
+      turn_pass(w);
+      hopper::wgmma_wait<1>();  // S_j only
+      hopper::fence_regs(sc);
+      online_softmax<BK>(sc, sm.row(s, 0), scale, m, l, corr);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      hopper::mbar_arrive(sm.empty(prev));
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
+      acc_to_a<BK>(pa, sc);
+    }
+
+    // the last tile's P.V
+    const int last = (n_tiles - 1) % C::STAGES;
+    turn_wait(w);
+    hopper::wgmma_fence();
+    grad_product<C>(o, pa, sm.tile(last, 1));
+    hopper::wgmma_commit();
+    if (w == 0) turn_pass(w);  // warpgroup 1 issues last
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    hopper::mbar_arrive(sm.empty(last));
+
+    // out = acc / max(l, 1e-30) (a division, as the TPU kernel),
+    // lse = m + log(max(l, 1e-30))
+    const float sl[2] = {fmaxf(quad_sum(l[0]), 1e-30f), fmaxf(quad_sum(l[1]), 1e-30f)};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] /= sl[(i % 4) / 2];
+    store_acc<D>(o, row_g, S, out, so, b, h);
+    if (lane % 4 == 0) {
+      if (row_g < S) lse[(long long)bh * S + row_g] = m[0] + logf(sl[0]);
+      if (row_g + 8 < S) lse[(long long)bh * S + row_g + 8] = m[1] + logf(sl[1]);
+    }
+  }
+}
+
 // ----------------------------------------------------------- backward dK/dV
 
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -489,7 +479,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                           float scale) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem[];
-  const BwdSmem<D> sm(smem);
+  const RingSmem<C> sm(smem);
   int bh, kt;
   block_tile(bh, kt);
   const int b = bh / H, h = bh % H;
@@ -502,12 +492,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     hopper::regs_dec<PRODUCER_REGS>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
-    if (lane == 0) load_resident<D>(sm, &tm_k, &tm_v, b, h, k0);
+    if (lane == 0) load_resident(sm, &tm_k, &tm_v, b, h, k0);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::STAGES;
       const int q0 = it * C::STREAM;
       hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
-      if (lane == 0) load_stream<D>(sm, s, &tm_q, &tm_do, b, h, q0);
+      if (lane == 0) load_stream(sm, s, &tm_q, &tm_do, b, h, q0);
       float* r_lse = sm.row(s, 0);
       float* r_delta = sm.row(s, 1);
       for (int i = lane; i < C::STREAM; i += 32) {
@@ -543,9 +533,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
       float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 queries
       hopper::wgmma_fence();
-      score_product<D>(st, sm.res(0), w, sQ);  // S^T = K . Q^T
+      score_product<C>(st, sm.res(0), w, sQ);  // S^T = K . Q^T
       hopper::wgmma_commit();
-      score_product<D>(dpt, sm.res(1), w, sDO);  // dP^T = V . dO^T
+      score_product<C>(dpt, sm.res(1), w, sDO);  // dP^T = V . dO^T
       hopper::wgmma_commit();
 
       hopper::wgmma_wait<1>();
@@ -569,12 +559,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - dl.y) * scale;
       }
       uint32_t pa[4][4], dsa[4][4];  // P^T and dS^T as bf16 A fragments
-      acc_to_a(pa, st);
-      acc_to_a(dsa, dpt);
+      acc_to_a<64>(pa, st);
+      acc_to_a<64>(dsa, dpt);
 
       hopper::wgmma_fence();
-      grad_product<D>(acc_dv, pa, sDO);  // dV += P^T . dO
-      grad_product<D>(acc_dk, dsa, sQ);  // dK += dS^T . Q
+      grad_product<C>(acc_dv, pa, sDO);  // dV += P^T . dO
+      grad_product<C>(acc_dk, dsa, sQ);  // dK += dS^T . Q
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc_dv);
@@ -592,7 +582,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 // -------------------------------------------------------------- backward dQ
 
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -602,7 +592,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                         int S, int H, float scale) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem[];
-  const BwdSmem<D> sm(smem);
+  const RingSmem<C> sm(smem);
   int bh, qt;
   block_tile(bh, qt);
   const int b = bh / H, h = bh % H;
@@ -615,12 +605,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     hopper::regs_dec<PRODUCER_REGS>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
-    if (lane == 0) load_resident<D>(sm, &tm_q, &tm_do, b, h, q0);
+    if (lane == 0) load_resident(sm, &tm_q, &tm_do, b, h, q0);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::STAGES;
       const int k0 = it * C::STREAM;
       hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
-      if (lane == 0) load_stream<D>(sm, s, &tm_k, &tm_v, b, h, k0);
+      if (lane == 0) load_stream(sm, s, &tm_k, &tm_v, b, h, k0);
       float* r_bias = sm.row(s, 0);
       for (int i = lane; i < C::STREAM; i += 32) {
         const int k = k0 + i;
@@ -655,9 +645,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
       float sc[32], dp[32];  // S and dP: 64 queries x 64 keys
       hopper::wgmma_fence();
-      score_product<D>(sc, sm.res(0), w, sK);  // S = Q . K^T
+      score_product<C>(sc, sm.res(0), w, sK);  // S = Q . K^T
       hopper::wgmma_commit();
-      score_product<D>(dp, sm.res(1), w, sV);  // dP = dO . V^T
+      score_product<C>(dp, sm.res(1), w, sV);  // dP = dO . V^T
       hopper::wgmma_commit();
 
       hopper::wgmma_wait<1>();
@@ -680,10 +670,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - delta1) * scale;
       }
       uint32_t dsa[4][4];  // dS as bf16 A fragments
-      acc_to_a(dsa, dp);
+      acc_to_a<64>(dsa, dp);
 
       hopper::wgmma_fence();
-      grad_product<D>(acc_dq, dsa, sK);  // dQ += dS . K
+      grad_product<C>(acc_dq, dsa, sK);  // dQ += dS . K
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc_dq);
@@ -703,31 +693,40 @@ cudaError_t set_smem_limit(Kernel kernel, int smem_bytes) {
                               smem_bytes);
 }
 
+// a bf16 [B, S, H, D] tensor map with 64-row boxes in the swizzle of D's
+// column chunks
+template <int D>
+bool encode_map(CUtensorMap* map, const bf16* t, Strides st, int B, int S, int H) {
+  return hopper::encode_bshd<chunk_width<D>(), 64>(map, t, B, S, H, D, st.b, st.s, st.h);
+}
+
 template <int D>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias,
                        bf16* out, float* lse, Strides sq, Strides sk, Strides sv, Strides so,
                        int B, int S, int H, float scale, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
+  using C = Fwd<D>;
   // raised once per instantiation (not per launch, so launches can be
   // captured into a CUDA graph)
-  static const cudaError_t limit = set_smem_limit(flash_fwd_kernel<D>, smem);
+  static const cudaError_t limit = set_smem_limit(flash_fwd_kernel<D>, C::SMEM);
   if (limit != cudaSuccess) return limit;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, bias, out, lse, sq, sk, sv,
-                                                        so, S, H, scale);
+  // the maps go by value as kernel parameters, so a captured graph keeps them
+  CUtensorMap maps[3];
+  if (!(encode_map<D>(&maps[0], q, sq, B, S, H) && encode_map<D>(&maps[1], k, sk, B, S, H) &&
+        encode_map<D>(&maps[2], v, sv, B, S, H)))
+    return cudaErrorInvalidValue;
+  dim3 grid(B * H, (S + C::RES - 1) / C::RES);
+  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], bias, out,
+                                                          lse, so, S, H, scale);
   return cudaGetLastError();
 }
 
-// the four bf16 [B, S, H, D] tensor maps of a backward launch (64-row boxes)
+// the four bf16 [B, S, H, D] tensor maps of a backward launch
 template <int D>
 bool encode_bwd_maps(CUtensorMap (&maps)[4], const bf16* q, const bf16* k, const bf16* v,
                      const bf16* dout, Strides sq, Strides sk, Strides sv, Strides sdo, int B,
                      int S, int H) {
-  constexpr int CW = Bwd<D>::CW, ROWS = Bwd<D>::STREAM;
-  return hopper::encode_bshd<CW, ROWS>(&maps[0], q, B, S, H, D, sq.b, sq.s, sq.h) &&
-         hopper::encode_bshd<CW, ROWS>(&maps[1], k, B, S, H, D, sk.b, sk.s, sk.h) &&
-         hopper::encode_bshd<CW, ROWS>(&maps[2], v, B, S, H, D, sv.b, sv.s, sv.h) &&
-         hopper::encode_bshd<CW, ROWS>(&maps[3], dout, B, S, H, D, sdo.b, sdo.s, sdo.h);
+  return encode_map<D>(&maps[0], q, sq, B, S, H) && encode_map<D>(&maps[1], k, sk, B, S, H) &&
+         encode_map<D>(&maps[2], v, sv, B, S, H) && encode_map<D>(&maps[3], dout, sdo, B, S, H);
 }
 
 template <int D>
@@ -737,16 +736,13 @@ cudaError_t launch_bwd_dkdv(const bf16* q, const bf16* k, const bf16* v, const f
                             Strides sdk, Strides sdv, int B, int S, int H, float scale,
                             cudaStream_t stream) {
   constexpr int smem = Bwd<D>::SMEM;
-  // raised once per instantiation (not per launch, so launches can be
-  // captured into a CUDA graph)
   static const cudaError_t limit = set_smem_limit(flash_bwd_dkdv_kernel<D>, smem);
   if (limit != cudaSuccess) return limit;
-  // the maps go by value as kernel parameters, so a captured graph keeps them
   CUtensorMap maps[4];
   if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
     return cudaErrorInvalidValue;
   dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
-  flash_bwd_dkdv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_bwd_dkdv_kernel<D><<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dk, dv, sdk, sdv, S, H, scale);
   return cudaGetLastError();
 }
@@ -763,7 +759,7 @@ cudaError_t launch_bwd_dq(const bf16* q, const bf16* k, const bf16* v, const flo
   if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
     return cudaErrorInvalidValue;
   dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
-  flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dq, sdq, S, H, scale);
   return cudaGetLastError();
 }

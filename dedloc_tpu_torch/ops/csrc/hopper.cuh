@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads, wgmma descriptors and instructions, register
-// rebalancing, and the host-side tensor-map encoder (looked up through the
-// CUDA runtime, so a library needs no -lcuda).
+// mbarriers, TMA tile loads, named barriers, wgmma descriptors and
+// instructions, register rebalancing, and the host-side tensor-map encoder
+// (looked up through the CUDA runtime, so a library needs no -lcuda).
 //
 // Shared-memory tiles follow wgmma's canonical swizzled layouts. A tile of
 // R rows by D bf16 columns is stored as D / CW column chunks, each chunk
@@ -70,6 +70,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ----------------------------------------------------------- named barriers
+
+// barrier `id` (1-15; 0 is __syncthreads) over THREADS threads: sync waits
+// for the count, arrive adds to it and goes on
+template <int THREADS>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+template <int THREADS>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
 }
 
 // ------------------------------------------------------ register rebalancing
@@ -163,19 +177,35 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   "+f"(d[OFF + o + 0]), "+f"(d[OFF + o + 1]), "+f"(d[OFF + o + 2]), "+f"(d[OFF + o + 3]), \
       "+f"(d[OFF + o + 4]), "+f"(d[OFF + o + 5]), "+f"(d[OFF + o + 6]), "+f"(d[OFF + o + 7])
 
-// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both from shared memory, K-major
-template <int OFF, int NACC>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[NACC], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  static_assert(OFF + 32 <= NACC, "accumulator range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
+// D[64 x N] (+)= A[64 x 16] . B[N x 16]^T, both from shared memory, K-major
+// (N = 64 or 128)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  constexpr int OFF = 0;
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(N == 128, "wgmma N");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_F8(0), HOPPER_F8(8), HOPPER_F8(16), HOPPER_F8(24), HOPPER_F8(32),
+          HOPPER_F8(40), HOPPER_F8(48), HOPPER_F8(56)
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
 }
 
 // D[64 x N] += A[64 x 16] (registers) . B[16 x N] (shared memory, MN-major)

@@ -9,16 +9,19 @@ over heads and not differentiated.
 Three kernels, in ``csrc/flash_attention.cu`` (built by ``_build.py``):
 
 - ``flash_fwd``: replaces ``_fwd_kernel`` (the ``pallas_call`` in ``_fwd``).
-  Writes ``out`` and ``lse = m + log(max(l, 1e-30))``.
+  One block per 128-row query tile, streaming 128-key tiles of K and V with
+  an online softmax. Writes ``out`` and ``lse = m + log(max(l, 1e-30))``.
 - ``flash_bwd_dkdv`` and ``flash_bwd_dq``: one block per 128-row key
   (dK/dV) or query (dQ) tile, streaming 64-row tiles of the other side at
   any S, they replace both backward paths of ``_bwd``: the split
   ``_dkv_kernel``/``_dq_kernel`` pair that JAX runs when S exceeds its block
   (the S=16,384 long-context step) and the single-tile
-  ``_dqkv_fused_kernel`` it runs otherwise (the seq-512 step). Their
-  products run on ``wgmma`` fed by a TMA ring (``csrc/hopper.cuh``).
+  ``_dqkv_fused_kernel`` it runs otherwise (the seq-512 step).
   ``delta = rowsum(dO * out)`` is computed outside the kernels in fp32, as
   the JAX custom VJP does.
+
+All three run their products on ``wgmma``, fed by a TMA ring
+(``csrc/hopper.cuh``).
 
 The forward is an operator the dispatcher sees (``dedloc_tpu_torch::
 flash_fwd``, registered with ``torch.library``), so a selective-checkpoint
@@ -42,7 +45,7 @@ from dedloc_tpu_torch.utils.device import on_card
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-FWD_TILE = 64  # query rows per forward block
+FWD_TILE = 128  # query rows per forward block
 BWD_TILE = 128  # key (dK/dV) or query (dQ) rows per backward block
 MAX_GRID_Y = 65535  # the grids are (B*H, tiles): y is at most 65535
 

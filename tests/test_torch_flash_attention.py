@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from dedloc_tpu.ops.flash_attention import _fwd as jax_fwd
+from dedloc_tpu.ops.flash_attention import _unpack_heads
 from dedloc_tpu.ops.flash_attention import flash_attention as jax_flash
 from dedloc_tpu_torch.ops import flash_attention as port
 
@@ -148,7 +150,7 @@ def test_bfloat16_backward_matches_jax(s, block_q, block_k, mask):
         _assert_close_per_sample(got.float().numpy(), want, 3e-2, f"d{name}")
 
 
-@pytest.mark.parametrize("tile", [port.FWD_TILE, port.BWD_TILE])
+@pytest.mark.parametrize("tile", [port.FWD_TILE, port.BWD_TILE], ids=["forward", "backward"])
 def test_check_common_limits_s_to_the_grid(tile):
     """The grids are (B*H, S / tile) with y at most 65535: the wrappers'
     check takes S up to 65535 tiles of the kernel's tile size and refuses
@@ -161,3 +163,61 @@ def test_check_common_limits_s_to_the_grid(tile):
     assert port._check_common(*inputs(most), tile) == (1, most, 1, 64)
     with pytest.raises(ValueError, match=f"at most {port.MAX_GRID_Y} tiles of {tile}"):
         port._check_common(*inputs(most + 1), tile)
+
+
+KERNEL_KEY_TILE = 128  # keys per streamed tile of the forward kernel (FWD_BK)
+
+
+def _forward_kernel_replay(q, k, v, bias, key_tile=KERNEL_KEY_TILE):
+    """The CUDA forward's arithmetic on the CPU, one key tile at a time:
+    s = q.k * scale + bias in fp32 (keys past S padded with zero K/V rows
+    and a -inf bias, as the kernel's TMA zero fill and bias row); the true
+    running max from -1e30; base-2 exps with the difference taken first;
+    l and O rescaled by the correction; p rounded to bf16 before P.V; the
+    final division. Returns (out in q's dtype, lse [B*H, S])."""
+    b, s, h, d = q.shape
+    scale, log2e = 1.0 / d ** 0.5, 1.4426950408889634
+    n = -(-s // key_tile) * key_tile
+    pad = lambda x: torch.nn.functional.pad(port._heads_first(x), (0, 0, 0, n - s))
+    qh, kh, vh = port._heads_first(q), pad(k), pad(v)
+    kb = torch.nn.functional.pad(bias.float(), (0, n - s), value=-float("inf"))
+    m = torch.full((b, h, s, 1), port.NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, n, key_tile):
+        cols = slice(k0, k0 + key_tile)
+        sc = qh @ kh[:, :, cols].transpose(-1, -2) * scale + kb[:, None, None, cols]
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((sc - m_new) * log2e)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vh[:, :, cols]
+        m = m_new
+    safe_l = l.clamp_min(1e-30)
+    out = (acc / safe_l).to(q.dtype).permute(0, 2, 1, 3)
+    return out, (m + torch.log(safe_l)).reshape(b * h, s)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_kernel_algorithm_matches_jax_bfloat16(d):
+    """The forward kernel's tile-by-tile arithmetic against JAX's forward
+    (``_fwd``, Pallas in interpret mode) in bf16 at S=300, ragged against
+    the key tile, with a short sample and an all-padding sample (which
+    averages V uniformly); bf16 per-sample tolerance of the tests above."""
+    inp = _inputs(6, s=300, d=d, mask="padding")
+    b, s, h, _ = inp["q"].shape
+    to3 = lambda x: jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    bias3 = jnp.broadcast_to(jnp.asarray(inp["bias"])[:, None, :], (b, h, s)).reshape(b * h, 1, s)
+    out3, lse_j = jax_fwd(to3(inp["q"]), to3(inp["k"]), to3(inp["v"]), bias3, 100, 100, True)
+    out_j = np.asarray(_unpack_heads(out3, b * h, d).astype(jnp.float32))
+    out_j = out_j.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+    out, lse = _forward_kernel_replay(
+        *(torch.tensor(inp[n]).bfloat16() for n in ("q", "k", "v")), torch.tensor(inp["bias"]))
+    assert out.dtype == torch.bfloat16
+    _assert_close_per_sample(out.float().numpy(), out_j, 3e-2, "out")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j).reshape(b * h, s),
+                               atol=1e-3, rtol=1e-5, err_msg="lse")
+    # the all-padding sample: p = 1 for every key, a uniform average of V
+    v_mean = torch.tensor(inp["v"][1]).bfloat16().float().mean(dim=0)
+    torch.testing.assert_close(out[1].float(), v_mean.expand_as(out[1]), atol=1e-2, rtol=1e-2)

@@ -48,22 +48,48 @@ Phases (any failure exits non-zero):
               weights and batches for 2 steps with attention_impl=
               "blockwise" (plain PyTorch, 0 launches); the flash run's
               losses before the first update must agree with it.
+7. collab     the collaborative boundary. On ALBERT-large's gradients (one
+              accumulation of 2 x 12 x 512 on the card): the device-flat
+              pipeline's wire (fp32, fp16, uint8) and error-feedback
+              residual against the same pipeline on the CPU (fp32, fp16
+              bitwise; uint8 within one code, its lo and scale bitwise);
+              the flat LAMB apply against the per-leaf guarded apply over 3
+              steps (1e-6 relative), two flat runs bitwise equal, a NaN
+              gradient rolled back bitwise with ok False. Then two trainer
+              peers as subprocesses through the real CLI
+              (``python -m dedloc_tpu_torch.roles.trainer``, ALBERT-large,
+              12 x 512, accumulation 2, remat fused_ln, target batch 48,
+              fp16 wire, device-flat, flat apply, error feedback), peer B
+              joining through peer A's DHT address, stopped once both have
+              taken 4 averaged global steps in groups of 2: every averaged
+              step took the flat apply and sent 2 bytes per gradient
+              element, no fallback fired, each boundary launched
+              48/48/48/96/96 kernels, the losses are finite, and the two
+              peers' checkpointed states hash equal at their last common
+              step. Each peer's step phases come from its telemetry event
+              log (StepRecorder).
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
-``{"path": ...}`` line, a ``{"longctx": ...}`` line, the nvidia-smi line,
-and last ``{"ok": true, "device": {...}}``.
+``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
+line, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import os
 import re
+import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -800,6 +826,330 @@ def phase_longctx(seed: int, seq: int = LONG_SEQ) -> dict:
                 blockwise_witness={k: witness[k] for k in keep})
 
 
+# ----------------------------------------------------------------- phase 7
+
+COLLAB_EXPECTED = {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
+                   "ln_fwd": 96, "ln_bwd": 96}  # per boundary, as the path's
+# the path phase's configuration, as trainer flags
+COLLAB_MODEL_FLAGS = ["--training.model_size", "large",
+                      "--training.remat_policy", "fused_ln",
+                      "--training.attention_impl", "flash",
+                      "--training.per_device_batch_size", "12",
+                      "--training.seq_length", "512"]
+COLLAB_STEPS = 4  # averaged global steps to wait for (at least 3 are checked)
+COLLAB_MIN_STEPS = 3
+COLLAB_DEADLINE_S = 240.0
+FALLBACKS = ("falling back to the host flatten path",
+             "keeping the per-leaf guarded apply")
+
+
+def collab_card_checks(seed: int) -> dict:
+    """The boundary's pieces on the card at ALBERT-large's gradients."""
+    from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
+    from dedloc_tpu_torch.core.config import TrainingArguments
+    from dedloc_tpu_torch.models.convert import state_views
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState, make_accumulate_step, make_flat_apply_step,
+        make_guarded_apply_step, zeros_like_grads,
+    )
+    from dedloc_tpu_torch.roles.common import (
+        build_flat_opt_factory, build_loss_fn, build_model, build_optimizer,
+        drop_collator_keys, synthetic_mlm_batches,
+    )
+
+    log("[collab] boundary checks on ALBERT-large's gradients")
+    cfg, model = build_model("large", remat_policy="fused_ln",
+                             attention_impl="flash", device="cuda", seed=seed)
+    params = dict(model.named_parameters())
+    accumulate = make_accumulate_step(build_loss_fn(model))
+    batches = synthetic_mlm_batches(cfg, 12, 512, seed)
+    grads, n = zeros_like_grads(params), 0
+    for _ in range(2):
+        grads, n, _ = accumulate(params, grads, n,
+                                 drop_collator_keys(next(batches), device="cuda"))
+    grads_cpu = {k: v.cpu() for k, v in grads.items()}
+    total = sum(g.numel() for g in grads.values())
+    out = {"flat_size": total, "wire": {}}
+    flats = {}
+    for comp in ("none", "float16", "uint8"):
+        card = DeviceFlatPipeline.for_tree(grads, compression=comp)
+        host = DeviceFlatPipeline.for_tree(grads_cpu, compression=comp)
+        fc = card.fetch(grads, n=n, use_ef=True)
+        fh = host.fetch(grads_cpu, n=n, use_ef=True)
+        meta_c = [m.cpu() for m in fc._meta]
+        meta_h = list(fh._meta)
+        res_c = None if fc._new_residual is None else fc._new_residual.cpu()
+        res_h = fh._new_residual
+        a, b = fc.result().flat, fh.result().flat
+        row = dict(wire_bytes=fc.wire_bytes,
+                   bytes_per_element=fc.wire_bytes / total,
+                   exposed_wait_ms=fc.exposed_wait_s * 1e3,
+                   fetch_ms=event_ms(lambda: card.fetch(grads, n=n).result()))
+        if comp == "uint8":
+            for name, x, y in (("lo", meta_c[0], meta_h[0]),
+                               ("scale", meta_c[1], meta_h[1])):
+                if not torch.equal(x, y):
+                    fail(f"collab: uint8 {name} card != cpu")
+            scale = meta_h[1].numpy()
+            codes = 0.0
+            for i, (lo, hi) in enumerate(card.bounds):
+                codes = max(codes, float(abs(a[lo:hi] - b[lo:hi]).max() / scale[i]))
+            if not codes <= 1.0 + 1e-4:
+                fail(f"collab: uint8 card vs cpu {codes:.3f} codes apart (tol 1)")
+            row["max_codes_apart"] = codes
+        else:
+            if a.tobytes() != b.tobytes():
+                fail(f"collab: {comp} wire card != cpu")
+            if res_c is not None and not torch.equal(res_c, res_h):
+                fail(f"collab: {comp} error-feedback residual card != cpu")
+            row["bitwise"] = True
+        flats[comp] = (card, a)
+        out["wire"][comp] = row
+        log(f"  {comp}: {json.dumps(row)}")
+    if out["wire"]["float16"]["wire_bytes"] != 2 * total:
+        fail("collab: the fp16 wire is not 2 bytes per element")
+
+    # the flat apply against the per-leaf guarded apply, from one state and
+    # on the same mean gradients (the fp32 wire is grads / n bitwise)
+    targs = TrainingArguments(warmup_steps=0)
+    tx = build_optimizer(targs)
+    spec = flats["none"][0].spec
+    flat_dev = torch.from_numpy(flats["none"][1]).cuda()
+    mean = {k: g / n for k, g in grads.items()}
+    init = {k: v.detach().clone() for k, v in params.items()}
+    del model, params, grads
+    fresh = lambda: TrainState.create({k: v.clone() for k, v in init.items()}, tx)
+    flat_fn = make_flat_apply_step(build_flat_opt_factory(targs)(spec, init), spec)
+    leaf_fn = make_guarded_apply_step(tx)
+    sa, sb, sc = fresh(), fresh(), fresh()
+    worst = 0.0
+    for _ in range(3):
+        sa, ok_a = flat_fn(sa, flat_dev)
+        sb, ok_b = leaf_fn(sb, mean)
+        sc, _ok = flat_fn(sc, flat_dev)
+        if not (bool(ok_a) and bool(ok_b)):
+            fail("collab: a finite apply reported ok False")
+        for name, p in sb.params.items():
+            rel = float((sa.params[name] - p).abs().max() / p.abs().max().clamp_min(1e-30))
+            worst = max(worst, rel)
+    moved = max(float((sa.params[k] - init[k]).abs().max()) for k in init)
+    if not worst <= 1e-6:
+        fail(f"collab: flat vs per-leaf apply {worst:.3e} relative (tol 1e-6)")
+    if not moved > 0:
+        fail("collab: 3 applies did not move the params")
+    views = lambda st: state_views(st.params, st.opt_state, clip=True, schedule=True)
+    for name, t in views(sa).items():
+        if not torch.equal(t, views(sc)[name]):
+            fail(f"collab: two flat applies differ at {name}")
+    before = {k: v.clone() for k, v in views(sa).items()}
+    poisoned = flat_dev.clone()
+    poisoned[total // 2] = float("nan")
+    sa, ok = flat_fn(sa, poisoned)
+    if bool(ok):
+        fail("collab: a NaN gradient gave ok True")
+    for name, t in views(sa).items():
+        if not torch.equal(t, before[name]):
+            fail(f"collab: the NaN rollback changed {name}")
+    out.update(
+        flat_vs_leaf_rel_err=worst, max_param_move=moved,
+        flat_apply_ms=event_ms(lambda: flat_fn(sc, flat_dev)),
+        leaf_apply_ms=event_ms(lambda: leaf_fn(sb, mean)),
+    )
+    log(f"  flat vs per-leaf apply over 3 steps: {worst:.3e} relative (tol "
+        f"1e-6); two flat runs bitwise; NaN rolled back bitwise; flat apply "
+        f"{out['flat_apply_ms']:.2f} ms, per-leaf {out['leaf_apply_ms']:.2f} ms")
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _jsonl(path) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip().endswith("}")]
+
+
+def _state_hash(path) -> str:
+    from dedloc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    named, _meta = load_checkpoint(path)
+    h = hashlib.sha256()
+    for name in sorted(named):
+        arr = named[name]
+        h.update(name.encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _peer_report(peer: str, work: str, total: int) -> dict:
+    """One peer's train log, event log and stderr log, checked."""
+    records = _jsonl(os.path.join(work, "train.jsonl"))
+    events = _jsonl(os.path.join(work, "events.jsonl"))
+    with open(os.path.join(work, "log.txt")) as f:
+        text = f.read()
+    for marker in FALLBACKS:
+        if marker in text:
+            fail(f"collab: peer {peer} fell back: {marker!r}")
+    joint = [r for r in records if r["group_size"] == 2]
+    if len(joint) < COLLAB_MIN_STEPS:
+        fail(f"collab: peer {peer} took {len(joint)} averaged steps "
+             f"(want >= {COLLAB_MIN_STEPS}); log tail:\n{text[-3000:]}")
+    for r in joint:
+        if r["apply"] != "flat":
+            fail(f"collab: peer {peer} step {r['step']} took the "
+                 f"{r['apply']} apply")
+    if not all(math.isfinite(r["loss"]) for r in records):
+        fail(f"collab: peer {peer} non-finite loss")
+    prev = {"boundaries": 0, "kernel_launches": {k: 0 for k in COLLAB_EXPECTED}}
+    for r in records:
+        nb = r["boundaries"] - prev["boundaries"]
+        got = {k: r["kernel_launches"][k] - prev["kernel_launches"][k]
+               for k in COLLAB_EXPECTED}
+        if got != {k: v * nb for k, v in COLLAB_EXPECTED.items()}:
+            fail(f"collab: peer {peer} launched {got} in {nb} boundaries "
+                 f"(want {COLLAB_EXPECTED} each)")
+        prev = r
+    d2h = [e for e in events if e.get("event") == "opt.d2h_stream"]
+    if not d2h or any(e["bytes"] != 2 * total or e["compression"] != "float16"
+                      for e in d2h):
+        fail(f"collab: peer {peer} d2h wire bytes "
+             f"{sorted({e['bytes'] for e in d2h})} != 2 x {total}")
+    steps = [e for e in events if e.get("event") == "step.record"]
+    stepped = [e for e in steps if e.get("stepped")][1:]  # the first warms up
+    plain = [e for e in steps if not e.get("stepped")][1:]
+    med = lambda xs: statistics.median(xs) if xs else None
+    phases = sorted({k for e in stepped for k in e.get("phases", {})})
+    return dict(
+        global_steps=[r["step"] for r in records],
+        averaged_steps=[r["step"] for r in joint],
+        solo_steps=[r["step"] for r in records if r["group_size"] == 1],
+        losses=[r["loss"] for r in records],
+        boundaries=records[-1]["boundaries"],
+        kernel_launches=records[-1]["kernel_launches"],
+        d2h_fetches=len(d2h), wire_bytes_per_round=d2h[-1]["bytes"],
+        d2h_exposed_ms=[e["exposed_s"] * 1e3 for e in d2h],
+        stepped_boundary_ms=med([e["dur_s"] * 1e3 for e in stepped]),
+        other_boundary_ms=med([e["dur_s"] * 1e3 for e in plain]),
+        phases_ms={k: med([e["phases"].get(k, 0.0) * 1e3 for e in stepped])
+                   for k in phases},
+        samples_per_s=statistics.mean(r["samples_per_second"] for r in joint),
+        seam_ms=joint[-1]["seam_ms"],
+        max_memory_allocated=records[-1].get("max_memory_allocated"),
+    )
+
+
+def collab_peers(seed: int, total: int) -> dict:
+    """Two trainer peers on the one card through the CLI, started together,
+    each bootstrapping its DHT from the other's address (so neither trains
+    alone while the other starts); stopped (SIGINT) once both have taken
+    COLLAB_STEPS averaged steps."""
+    from dedloc_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="collab-", dir=_build.BUILD_DIR)
+    ports = {"A": _free_port(), "B": _free_port()}
+    cmd = [sys.executable, "-m", "dedloc_tpu_torch.roles.trainer",
+           "--dht.experiment_prefix", "chip-smoke-collab",
+           "--dht.listen_host", "127.0.0.1", *COLLAB_MODEL_FLAGS,
+           "--training.gradient_accumulation_steps", "2",
+           "--training.warmup_steps", "0", "--training.seed", str(seed),
+           "--training.max_local_steps", "200",
+           "--training.save_steps", "1", "--training.save_total_limit", "0",
+           "--optimizer.target_batch_size", "48",
+           "--optimizer.device_flat", "true", "--optimizer.flat_apply", "true",
+           "--optimizer.error_feedback", "true",
+           "--averager.compression", "float16",
+           # a fresher view of the partner's progress than the 3 s default,
+           # so a run of a few steps is not mostly waiting for the refresh
+           "--averager.min_refresh_period", "0.2",
+           "--averager.default_refresh_period", "0.5",
+           "--telemetry.enabled", "true"]
+    procs, logs = {}, {}
+    t_start = time.perf_counter()
+    try:
+        for peer, other in (("A", "B"), ("B", "A")):
+            pdir = os.path.join(work, peer)
+            os.makedirs(pdir)
+            logs[peer] = open(os.path.join(pdir, "log.txt"), "w")
+            procs[peer] = subprocess.Popen(
+                cmd + [
+                    "--dht.listen_port", str(ports[peer]),
+                    "--dht.initial_peers", f"127.0.0.1:{ports[other]}",
+                    "--training.output_dir", pdir,
+                    "--training.train_log_path", os.path.join(pdir, "train.jsonl"),
+                    "--telemetry.event_log_path", os.path.join(pdir, "events.jsonl")],
+                stdout=logs[peer], stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        deadline = time.time() + COLLAB_DEADLINE_S
+        while time.time() < deadline:
+            done = all(
+                sum(r["group_size"] == 2 for r in
+                    _jsonl(os.path.join(work, p, "train.jsonl"))) >= COLLAB_STEPS
+                for p in procs)
+            if done or any(pr.poll() is not None for pr in procs.values()):
+                break
+            time.sleep(1.0)
+        for peer, pr in procs.items():
+            if pr.poll() is not None:
+                with open(os.path.join(work, peer, "log.txt")) as f:
+                    fail(f"collab: peer {peer} exited early "
+                         f"({pr.returncode}):\n{f.read()[-3000:]}")
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.send_signal(signal.SIGINT)
+        for pr in procs.values():
+            try:
+                pr.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+        for f in logs.values():
+            f.close()
+    wall_s = time.perf_counter() - t_start
+    try:
+        reports = {p: _peer_report(p, os.path.join(work, p), total)
+                   for p in procs}
+        common = sorted(set(reports["A"]["averaged_steps"])
+                        & set(reports["B"]["averaged_steps"]))
+        hashes = {}
+        for step in common:
+            paths = [os.path.join(work, p, f"checkpoint-{step}") for p in procs]
+            if all(os.path.isdir(x) for x in paths):
+                hashes[step] = [_state_hash(x) for x in paths]
+        if not hashes:
+            fail(f"collab: no averaged step checkpointed by both peers {common}")
+        last = max(hashes)
+        if hashes[last][0] != hashes[last][1]:
+            fail(f"collab: the peers' states differ at their last common "
+                 f"step {last}: {hashes[last]}")
+        log(f"  state sha256 at common steps: "
+            f"{ {s: h[0][:16] + ('=' if h[0] == h[1] else '!=') for s, h in hashes.items()} }")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(wall_s=wall_s, peers=reports, last_common_step=last,
+                state_sha256=hashes[last][0],
+                steps_equal={str(s): h[0] == h[1] for s, h in hashes.items()})
+
+
+def phase_collab(seed: int) -> dict:
+    t0 = time.perf_counter()
+    checks = collab_card_checks(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[collab] two trainer peers through the CLI on this card")
+    path = collab_peers(seed, checks["flat_size"])
+    for peer, rep in path["peers"].items():
+        log(f"  peer {peer}: {json.dumps(rep)}")
+    return dict(checks=checks, **path, phase_s=time.perf_counter() - t0)
+
+
 def _kind(name: str) -> str:
     if "flash_" in name or "_ln_" in name:
         return "port kernels"
@@ -864,6 +1214,7 @@ def main(argv=None) -> int:
     phase_reference(args.seed)
     path = phase_path(args.seed)
     longctx = phase_longctx(args.seed)
+    collab = phase_collab(args.seed)
 
     rows = []
     for k in kernels:
@@ -880,6 +1231,10 @@ def main(argv=None) -> int:
             library_ms=k.pop("library_ms"), **k,
             samples_with_keys=samples_with_keys,
         ))
+        if k["path"] == "S=512":
+            # the same kernel in the two trainer peers of the collab phase
+            rows[-1]["launches_collab"] = sum(
+                rep["kernel_launches"][name] for rep in collab["peers"].values())
         if rows[-1]["route"] == "cuda":
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with
@@ -890,6 +1245,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"path": path}))
     print(json.dumps({"longctx": longctx}))
+    print(json.dumps({"collab": collab}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

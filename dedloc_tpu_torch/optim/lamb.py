@@ -12,10 +12,13 @@ Port of ``dedloc_tpu/optim/lamb.py``'s ``lamb``, in this order:
 6. ``* -lr(count)``, the schedule's own count starting at 0.
 
 ``Lamb`` is functional like optax's chain: ``init(params)`` gives the state
-and ``update(grads, state, params)`` gives ``(updates, state')``. Params
-and grads are dicts of tensors keyed by the port's parameter names. The
-moments are updated in place (they are not read again by the caller), and
-the counts are Python ints, so an update never waits on the device.
+and ``update(grads, state, params)`` gives ``(updates, state')`` and leaves
+``state``'s tensors as they were (a guarded apply selects between the two).
+Params and grads are dicts of tensors keyed by the port's parameter names.
+The counts are Python ints on the local path, so an update never waits on
+the device; the collaborative path's guarded applies keep them as 0-d int32
+tensors on the card (a rolled-back step must not advance them), and then the
+bias corrections and the learning rate are computed there too.
 """
 from __future__ import annotations
 
@@ -83,9 +86,27 @@ class Lamb:
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
         return LambState(count=0, mu=zeros(), nu=zeros(), schedule_count=0)
 
-    def _lr(self, count: int) -> float:
+    @property
+    def has_schedule(self) -> bool:
+        """Whether the JAX chain holds a schedule count (a callable rate)."""
+        return callable(self.learning_rate)
+
+    def _lr(self, count):
         lr = self.learning_rate
+        if isinstance(count, torch.Tensor):
+            return lr(count) if callable(lr) else float(np.float32(lr))
         return float(np.float32(lr(count) if callable(lr) else lr))
+
+    def bias_corrections(self, count):
+        """(1 - b1^count, 1 - b2^count) in float32: host floats for an int
+        count, 0-d tensors beside a tensor count."""
+        if isinstance(count, torch.Tensor):
+            c = count.to(torch.float32)
+            b1, b2 = (torch.full_like(c, b) for b in (self.b1, self.b2))
+            return 1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)
+        c = np.float32(count)
+        return (float(np.float32(1) - np.float32(self.b1) ** c),
+                float(np.float32(1) - np.float32(self.b2) ** c))
 
     def _clip(self, grads: Params) -> Dict[str, torch.Tensor]:
         if self.max_grad_norm is None:
@@ -106,20 +127,18 @@ class Lamb:
         b1, b2 = self.b1, self.b2
         grads = self._clip(grads)
         count = state.count + 1
-        c = np.float32(count)
-        bc1 = float(np.float32(1) - np.float32(b1) ** c)
-        bc2 = float(np.float32(1) - np.float32(b2) ** c)
+        bc1, bc2 = self.bias_corrections(count)
         decay = albert_weight_decay_mask(params)
         step_size = -self._lr(state.schedule_count)
-        updates = {}
+        updates, new_mu, new_nu = {}, {}, {}
         for n, g in grads.items():
-            mu = state.mu[n].mul_(b1).add_((1 - b1) * g)
-            nu = state.nu[n].mul_(b2).add_((1 - b2) * g * g)
+            mu = new_mu[n] = state.mu[n] * b1 + (1 - b1) * g
+            nu = new_nu[n] = state.nu[n] * b2 + (1 - b2) * g * g
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             w = params[n]
             if self.weight_decay > 0.0 and decay[n]:
                 u = u + self.weight_decay * w
             u = u * trust_ratio_scale(_norm(w), _norm(u), self.clamp_value)
             updates[n] = step_size * u
-        return updates, LambState(count=count, mu=state.mu, nu=state.nu,
+        return updates, LambState(count=count, mu=new_mu, nu=new_nu,
                                   schedule_count=state.schedule_count + 1)

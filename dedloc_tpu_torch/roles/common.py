@@ -1,18 +1,22 @@
-"""Builders for the trainer peer's device path: model, optimizer, loss, data.
+"""Shared builders for role entry points: device, model, optimizer, DHT,
+data.
 
-Port of the tensor-side builders of ``dedloc_tpu/roles/common.py``. The DHT,
-authorization, checkpoint and telemetry builders come with the slices that
-port the collaboration itself.
+Port of ``dedloc_tpu/roles/common.py``. The tensor-side builders run on the
+card unless the caller names another device; the DHT, authorization,
+checkpoint and telemetry builders are the JAX package's, over the port's
+own copies of those modules.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from dedloc_tpu_torch.core.config import TrainingArguments
+from dedloc_tpu_torch.collaborative.metrics import make_validators
+from dedloc_tpu_torch.core.config import CollaborationArguments, TrainingArguments
 from dedloc_tpu_torch.data.mlm import SpecialTokens, mask_tokens, max_predictions_for
 from dedloc_tpu_torch.models.albert import (
     AlbertConfig,
@@ -22,9 +26,23 @@ from dedloc_tpu_torch.models.albert import (
     fused_ln_for_policy,
     init_weights,
 )
+from dedloc_tpu_torch.dht.dht import DHT
 from dedloc_tpu_torch.optim.lamb import Lamb
 from dedloc_tpu_torch.optim.schedules import linear_warmup_linear_decay
 from dedloc_tpu_torch.utils.device import DeviceLike, resolve_device
+from dedloc_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+
+def force_cpu_if_requested() -> torch.device:
+    """The device a role runs on: the CPU when the caller asks for it with
+    ``DEDLOC_FORCE_CPU=1`` (multi-peer drives and tests), else the card —
+    and without one that raises, as ``resolve_device`` does: a role never
+    carries on quietly on the CPU."""
+    if os.environ.get("DEDLOC_FORCE_CPU") == "1":
+        return torch.device("cpu")
+    return resolve_device(None)
 
 
 def build_model(
@@ -53,20 +71,150 @@ def build_model(
     return cfg, model.to(dev)
 
 
-def build_optimizer(args: TrainingArguments) -> Lamb:
-    """LAMB + linear warmup/decay (reference recipe). Takes the training
-    arguments (the JAX builder reads the same fields from ``args.training``)."""
-    schedule = linear_warmup_linear_decay(
-        args.learning_rate,
-        warmup_steps=args.warmup_steps,
-        total_steps=args.total_steps,
+def _training(args) -> TrainingArguments:
+    return args.training if isinstance(args, CollaborationArguments) else args
+
+
+def _schedule(tr: TrainingArguments):
+    return linear_warmup_linear_decay(
+        tr.learning_rate, warmup_steps=tr.warmup_steps,
+        total_steps=tr.total_steps,
     )
+
+
+def build_optimizer(args) -> Lamb:
+    """LAMB + linear warmup/decay (reference recipe), from the collaboration
+    arguments as in the JAX package, or from their ``training`` part."""
+    tr = _training(args)
     return Lamb(
-        learning_rate=schedule,
-        weight_decay=args.weight_decay,
-        clamp_value=args.clamp_value,
-        max_grad_norm=args.max_grad_norm,
+        learning_rate=_schedule(tr),
+        weight_decay=tr.weight_decay,
+        clamp_value=tr.clamp_value,
+        max_grad_norm=tr.max_grad_norm,
     )
+
+
+def build_flat_opt_factory(args) -> Callable:
+    """(spec, params) -> ``optim.flat.FlatLamb`` for the SAME
+    hyperparameters as ``build_optimizer``: the flat apply's twin of the
+    per-leaf chain (--optimizer.flat_apply). A factory, because the wire
+    spec only exists once the first gradient dict does."""
+    tr = _training(args)
+    schedule = _schedule(tr)
+
+    def factory(spec, params):
+        from dedloc_tpu_torch.optim.flat import FlatLamb, tree_flags
+        from dedloc_tpu_torch.optim.lamb import albert_weight_decay_mask
+
+        flags = tree_flags(albert_weight_decay_mask(params), params,
+                           [name for name, _shape, _dtype in spec])
+        return FlatLamb(
+            spec, flags, schedule,
+            weight_decay=tr.weight_decay,
+            clamp_value=tr.clamp_value,
+            max_grad_norm=tr.max_grad_norm,
+        )
+
+    return factory
+
+
+def build_authorizer(args: CollaborationArguments):
+    """Gated-run handshake: when --auth.username is set, fetch a signed
+    access token from the AuthService (default host: the first initial
+    peer, where the coordinator attaches it) and return (authorizer,
+    authority_public_key); (None, None) for open runs."""
+    if not args.auth.username:
+        return None, None
+    spec = args.auth.endpoint or (
+        args.dht.initial_peers[0] if args.dht.initial_peers else ""
+    )
+    if not spec:
+        raise ValueError(
+            "--auth.username given but no --auth.endpoint and no "
+            "--dht.initial_peers to default to"
+        )
+    host, _, port = spec.rpartition(":")
+    from dedloc_tpu_torch.core.auth import remote_auth_handshake
+
+    authorizer = remote_auth_handshake(
+        (host, int(port)), args.auth.username, args.auth.credential
+    )
+    from dedloc_tpu_torch.core.timeutils import get_dht_time
+
+    remaining = authorizer._token.expiration_time - get_dht_time()
+    logger.info(
+        f"authorized as {args.auth.username!r} "
+        f"(token valid for {remaining:.0f}s; auto-refreshes)"
+    )
+    return authorizer, authorizer.authority_public_key
+
+
+def build_dht(
+    args: CollaborationArguments,
+    client_mode: Optional[bool] = None,
+    private_key=None,
+):
+    """DHT with the signed-metrics validator chain. Returns (dht, subkey).
+
+    ``private_key`` lets a gated peer sign DHT records with its TOKEN key
+    (``authorizer.local_private_key``), so contribution-ledger records are
+    identity-bound end to end; open runs leave it None and get a fresh
+    per-process key."""
+    validators, public_key = make_validators(
+        args.dht.experiment_prefix, private_key
+    )
+    dht = DHT(
+        initial_peers=args.dht.initial_peers,
+        start=True,
+        listen_host=args.dht.listen_host,
+        listen_port=args.dht.listen_port,
+        client_mode=args.dht.client_mode if client_mode is None else client_mode,
+        record_validators=validators,
+        advertised_host=args.dht.advertised_host or None,
+    )
+    return dht, public_key
+
+
+def checkpoint_kwargs(args, public_key: bytes) -> Dict:
+    """Resolve ``--checkpoint.*`` knobs into CollaborativeOptimizer kwargs.
+    THE one resolution point for the shard cache dir: empty =
+    ``<output_dir>/shard_cache``, "none" = no cache."""
+    ck = args.checkpoint
+    if ck.cache_dir == "none":
+        cache_dir = None
+    else:
+        cache_dir = ck.cache_dir or os.path.join(
+            args.training.output_dir, "shard_cache"
+        )
+    return dict(
+        checkpoint_shard_size=ck.shard_size,
+        checkpoint_fetch_parallelism=ck.fetch_parallelism,
+        checkpoint_max_providers=ck.providers,
+        checkpoint_dir=cache_dir,
+        # catalog announcements ride the peer's SIGNED metrics subkey
+        signed_subkey=public_key,
+    )
+
+
+def configure_role_telemetry(args, public_key: bytes):
+    """Install the process-global swarm-telemetry registry for a role
+    (``--telemetry.*``). The peer label is the sha1 fingerprint of the
+    signed metrics subkey, as the JAX package derives it. Returns
+    ``(registry_or_None, close_fn)``; call ``close_fn()`` on shutdown."""
+    import hashlib
+
+    from dedloc_tpu_torch import telemetry
+
+    tele = telemetry.configure(
+        args.telemetry, peer=hashlib.sha1(public_key).hexdigest()[:12]
+    )
+
+    def close() -> None:
+        if tele is not None:
+            tele.close()
+            telemetry.uninstall(tele)
+
+    return tele, close
 
 
 def build_loss_fn(model: AlbertForPreTraining) -> Callable:

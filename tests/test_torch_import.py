@@ -20,8 +20,11 @@ REPO = Path(__file__).resolve().parent.parent
 _PROBE = r"""
 import importlib, pkgutil, sys
 import dedloc_tpu_torch
+# the compiled wire codec (native/_wirecodec.so, built at first use) is
+# loaded with ctypes, not imported
 names = [m.name for m in pkgutil.walk_packages(dedloc_tpu_torch.__path__,
-                                               "dedloc_tpu_torch.")]
+                                               "dedloc_tpu_torch.")
+         if m.name != "dedloc_tpu_torch.native._wirecodec"]
 for name in names:
     importlib.import_module(name)
 banned = [m for m in sys.modules

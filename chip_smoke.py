@@ -30,7 +30,12 @@ Phases (any failure exits non-zero):
               used by the port).
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
-5. path       ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
+5. path       first the divisions the reference makes, card against CPU
+              from identical inputs at ALBERT-large's parameter shapes:
+              LAMB's bias-corrected moments at counts 1-3 and the
+              accumulation of 3 micro-batches, bitwise (and the share of
+              elements a Python-number divisor would change on the card).
+              Then ALBERT-large (24 x 1024, 16 heads), micro-batch 12 x 512,
               accumulation 2, LAMB with warmup 0, remat policy fused_ln:
               3 optimizer steps through build_model / build_optimizer /
               synthetic_mlm_batches / make_accumulate_step /
@@ -68,10 +73,33 @@ Phases (any failure exits non-zero):
               peers' checkpointed states hash equal at their last common
               step. Each peer's step phases come from its telemetry event
               log (StepRecorder).
+8. downstream the sahajBERT chain at ALBERT-large's width, with no
+              tokenizers package: stdlib docstrings (``data/corpus.py``)
+              under a word-level vocabulary (the most frequent words after
+              the 5 special tokens, within 30,000 ids) become S=512 MLM+SOP
+              shards (``data/prepare.py`` ``instance_batches``,
+              ``data/disk.py``), every tenth document held out. One solo
+              trainer peer through the CLI on the train shards (12 x 512,
+              accumulation 2, remat fused_ln, flash, target batch 24, 4
+              local steps, a checkpoint): 48/48/48/96/96 launches per
+              boundary, finite losses starting near ln 30,000 + ln 2, no
+              fallback. The evaluator CLI on that checkpoint over the
+              held-out shards with flash + fused_ln and with dense + plain
+              LN: MLM losses within DOWN_EVAL_MLM_TOL, the flash run again in
+              this process identical, with 24 flash and 48 add+LN launches
+              per batch; ms per batch of each. ``run_ner`` and ``run_ncc``
+              warm-started from the checkpoint at the reference defaults
+              (128 tokens, batch 32, lr 5e-5, classifier dropout 0.1), one
+              epoch of 8 steps on corpus sentences labelled by fixed rules:
+              finite losses, the metric keys, the best params restored and
+              evaluating to their epoch's loss, no port kernel launched; ms
+              per step and peak memory. Both heads on a tiny config, card
+              against CPU.
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
-line, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+line, a ``{"downstream": ...}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -762,8 +790,72 @@ def _large(cfg, seed: int):
     return model.to("cuda")
 
 
+def divisor_checks(seed: int) -> dict:
+    """The divisions the reference makes, on the card against the CPU from
+    identical inputs at ALBERT-large's parameter shapes: LAMB's
+    bias-corrected moments at int counts 1, 2, 3 and the local step's
+    accumulation of 3 micro-batches must be bitwise equal (both divide by a
+    0-d tensor on the device). Also counts the elements a Python-number
+    divisor, which CUDA applies as a reciprocal multiply, would change."""
+    from dedloc_tpu_torch.optim.lamb import Lamb, bias_corrections, debiased
+    from dedloc_tpu_torch.parallel.train_step import add_micro_grads, zeros_like_grads
+    from dedloc_tpu_torch.roles.common import build_model
+
+    log("[path] divisions on the card against the CPU (ALBERT-large shapes)")
+    _cfg, model = build_model("large", device="cpu", seed=seed)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    gen = torch.Generator().manual_seed(seed)
+    grads = [{k: torch.randn(p.shape, generator=gen) * 1e-3
+              for k, p in params.items()} for _ in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tx = Lamb(learning_rate=1e-3, weight_decay=0.01)
+        p = {k: v.to(device) for k, v in params.items()}
+        state, hats, host_divisor = tx.init(p), [], []
+        for g in grads:
+            _upd, state = tx.update({k: v.to(device) for k, v in g.items()},
+                                    state, p)
+            bc1, bc2 = bias_corrections(tx.b1, tx.b2, state.count)
+            hats.append({k: [t.cpu() for t in debiased(state.mu[k], state.nu[k],
+                                                       bc1, bc2)]
+                         for k in p})
+            host_divisor.append({k: [(state.mu[k] / bc1).cpu(),
+                                     (state.nu[k] / bc2).cpu()] for k in p})
+        acc = zeros_like_grads(p)
+        python_acc = zeros_like_grads(p)
+        for g in grads:
+            g = {k: v.to(device) for k, v in g.items()}
+            add_micro_grads(acc, g, 3)
+            for k, v in g.items():
+                python_acc[k].add_(v / 3)
+        runs[device] = (hats, host_divisor, {k: v.cpu() for k, v in acc.items()},
+                        {k: v.cpu() for k, v in python_acc.items()})
+    (hats_c, host_c, acc_c, pacc_c), (hats_p, _h, acc_p, _pa) = runs["cuda"], runs["cpu"]
+    n = sum(t.numel() for t in params.values())
+    out = {"elements": n, "counts": [1, 2, 3]}
+    for count, (hc, hp, pc) in enumerate(zip(hats_c, hats_p, host_c), start=1):
+        for i, what in enumerate(("mu_hat", "nu_hat")):
+            same = all(torch.equal(hc[k][i], hp[k][i]) for k in hp)
+            if not same:
+                fail(f"path: LAMB {what} at count {count} card != cpu")
+            differ = sum(int((pc[k][i] != hp[k][i]).sum()) for k in hp)
+            out[f"{what}_{count}"] = dict(bitwise=True,
+                                          python_divisor_share=differ / n)
+    if not all(torch.equal(acc_c[k], acc_p[k]) for k in acc_p):
+        fail("path: the accumulated gradient at grad_accum_steps=3 card != cpu")
+    differ = sum(int((pacc_c[k] != acc_p[k]).sum()) for k in acc_p)
+    out["accum_3"] = dict(bitwise=True, python_divisor_share=differ / n)
+    log(f"  bitwise card == cpu: LAMB m_hat, v_hat at counts 1-3 and the "
+        f"accumulation of 3; a Python-number divisor would change "
+        f"{ {k: round(v['python_divisor_share'], 4) for k, v in out.items() if isinstance(v, dict)} } "
+        f"of {n} elements")
+    return out
+
+
 def phase_path(seed: int, micro_batch: int = 12, seq: int = 512) -> dict:
     from dedloc_tpu_torch.roles.common import build_model
+
+    divisors = divisor_checks(seed)
 
     cfg, model = build_model("large", remat_policy="fused_ln",
                              attention_impl="flash", device="cuda", seed=seed)
@@ -779,7 +871,7 @@ def phase_path(seed: int, micro_batch: int = 12, seq: int = 512) -> dict:
     cfg = dataclasses.replace(cfg, remat=False)
     keep_all = run_path("path, no remat", cfg, _large(cfg, seed), micro_batch,
                         seq, seed, expected)
-    return dict(remat, no_remat={k: keep_all[k] for k in (
+    return dict(remat, divisors=divisors, no_remat={k: keep_all[k] for k in (
         "ms_per_step", "samples_per_s", "step_ms", "max_memory_allocated",
         "losses", "mlm_losses", "sop_losses", "launches_per_step")})
 
@@ -1150,6 +1242,484 @@ def phase_collab(seed: int) -> dict:
     return dict(checks=checks, **path, phase_s=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------- phase 8
+
+DOWN_SEQ = 512
+DOWN_BATCH = 12
+DOWN_BOUNDARIES = 4  # the trainer's local steps (2 x 12 x 512 each)
+DOWN_EVAL_BATCHES = 8
+# |flash + fused_ln - dense + plain LN| allowed on the evaluator's mean MLM
+# loss over 8 held-out batches (96 x 512, ~7,000 masked positions). The two
+# paths round differently: flash rounds exp(s - m) to bf16 against running
+# maxima before normalising, dense rounds the normalised probabilities; the
+# fused add+LN rounds y once from its own fp32 statistics. Each is a 2^-9
+# relative flip of a bf16 element, through 24 layers. WITNESS_MLM_TOL (1e-4)
+# held flash against blockwise with the same LN; phase_reference's 2e-2 holds
+# a whole tiny model card vs CPU. This sits between them: a wrong tile, mask,
+# scale or LN moves the loss by far more.
+DOWN_EVAL_MLM_TOL = 1e-3
+FT_SEQ, FT_BATCH = 128, 32  # the reference fine-tunes' defaults
+FT_TRAIN, FT_EVAL = 8 * FT_BATCH, 2 * FT_BATCH  # one epoch of 8 steps
+_WORDS = re.compile(r"\w+|[^\w\s]")
+
+
+class WordVocab:
+    """Word-level ids for the smoke corpus: the 5 special tokens of
+    ``data/mlm.py`` ``SpecialTokens`` (pad, unk, [CLS], [SEP], [MASK]), then
+    the most frequent lower-cased words, within ``size`` ids; other words
+    are unk (1). The phase needs no ``tokenizers`` package."""
+
+    def __init__(self, docs, size: int):
+        import collections
+
+        counts = collections.Counter(
+            w for d in docs for w in _WORDS.findall(d.lower()))
+        self.words = [w for w, _ in counts.most_common(size - 5)]
+        self.ids = {w: 5 + i for i, w in enumerate(self.words)}
+
+    def encode(self, text: str) -> list:
+        return [self.ids.get(w, 1) for w in _WORDS.findall(text.lower())]
+
+
+def downstream_shards(seed: int, work: str) -> tuple:
+    """Stdlib docstrings (``data/corpus.py``) -> word ids -> MLM+SOP
+    instances at S=512 (``data/prepare.py``) -> shards (``data/disk.py``):
+    every tenth document held out. Returns (counts and paths, the
+    vocabulary, the documents)."""
+    import sysconfig
+
+    from dedloc_tpu_torch.data.corpus import harvest
+    from dedloc_tpu_torch.data.disk import write_shards
+    from dedloc_tpu_torch.data.mlm import SpecialTokens
+    from dedloc_tpu_torch.data.prepare import instance_batches
+    from dedloc_tpu_torch.data.streaming import split_sentences
+
+    t0 = time.perf_counter()
+    docs = list(harvest([sysconfig.get_paths()["stdlib"]]))
+    harvest_s = time.perf_counter() - t0
+    tokens = SpecialTokens()  # ALBERT-large's vocab of 30,000
+    vocab = WordVocab(docs, tokens.vocab_size)
+    splits = {"train": [d for i, d in enumerate(docs) if i % 10],
+              "holdout": docs[::10]}
+    out = dict(documents=len(docs), harvest_s=harvest_s,
+               vocab_ids=5 + len(vocab.words))
+    for name, split in splits.items():
+        path = os.path.join(work, name)
+        n_tokens = [0]
+
+        def counted(batches):
+            for b in batches:
+                n_tokens[0] += int((b["input_ids"] != tokens.pad_id).sum())
+                yield b
+
+        total = write_shards(path, counted(instance_batches(
+            iter(split),
+            lambda doc: [vocab.encode(x) for x in split_sentences(doc)],
+            tokens, DOWN_SEQ, 256, seed)), examples_per_shard=1024)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"vocab_size": tokens.vocab_size,
+                       "max_seq_length": DOWN_SEQ, "num_instances": total}, f)
+        out[name] = dict(path=path, documents=len(split), instances=total,
+                         tokens=n_tokens[0])
+    log(f"[downstream] corpus: {out['documents']} stdlib documents in "
+        f"{harvest_s:.1f} s, {out['vocab_ids']} word ids; train "
+        f"{out['train']['documents']} docs / {out['train']['instances']} "
+        f"instances / {out['train']['tokens']} tokens, holdout "
+        f"{out['holdout']['documents']} / {out['holdout']['instances']} / "
+        f"{out['holdout']['tokens']}")
+    return out, vocab, docs
+
+
+def downstream_trainer(seed: int, work: str, shards: str) -> dict:
+    """One solo trainer peer through the CLI on the train shards: target 24
+    (its own 2 x 12), 4 local steps, a checkpoint at the end."""
+    out_dir = os.path.join(work, "trainer")
+    log_path = os.path.join(work, "trainer.jsonl")
+    events_path = os.path.join(work, "events.jsonl")
+    cmd = [sys.executable, "-m", "dedloc_tpu_torch.roles.trainer",
+           "--dht.experiment_prefix", "chip-smoke-downstream",
+           "--dht.listen_host", "127.0.0.1",
+           "--dht.listen_port", str(_free_port()), *COLLAB_MODEL_FLAGS,
+           "--training.dataset_path", shards,
+           "--training.gradient_accumulation_steps", "2",
+           "--training.warmup_steps", "0", "--training.seed", str(seed),
+           "--training.max_local_steps", str(DOWN_BOUNDARIES),
+           "--training.save_steps", "1", "--training.save_total_limit", "1",
+           "--training.output_dir", out_dir,
+           "--training.train_log_path", log_path,
+           "--optimizer.target_batch_size", str(2 * DOWN_BATCH),
+           "--checkpoint.cache_dir", "none",
+           "--telemetry.enabled", "true",
+           "--telemetry.event_log_path", events_path,
+           # a solo peer finds no partner: do not wait 5 s for one
+           "--averager.averaging_expiration", "0.5",
+           "--averager.min_refresh_period", "0.2",
+           "--averager.default_refresh_period", "0.5"]
+    log(f"[downstream] trainer: {' '.join(cmd[3:])}")
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "trainer.log"), "w") as logf:
+        proc = subprocess.run(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=420)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(work, "trainer.log")) as f:
+        text = f.read()
+    if proc.returncode:
+        fail(f"downstream: the trainer exited {proc.returncode}:\n{text[-3000:]}")
+    for marker in FALLBACKS:
+        if marker in text:
+            fail(f"downstream: the trainer fell back: {marker!r}")
+    records = _jsonl(log_path)
+    if len(records) < 2:  # 2 global steps of 2 boundaries each
+        fail(f"downstream: the trainer logged {len(records)} global steps "
+             f"(want 2); log tail:\n{text[-3000:]}")
+    prev = {"boundaries": 0, "kernel_launches": {k: 0 for k in COLLAB_EXPECTED}}
+    for r in records:
+        nb = r["boundaries"] - prev["boundaries"]
+        got = {k: r["kernel_launches"][k] - prev["kernel_launches"][k]
+               for k in COLLAB_EXPECTED}
+        if got != {k: v * nb for k, v in COLLAB_EXPECTED.items()}:
+            fail(f"downstream: the trainer launched {got} in {nb} boundaries "
+                 f"(want {COLLAB_EXPECTED} each)")
+        prev = r
+    losses = [r["loss"] for r in records]
+    at_init = math.log(30000) + math.log(2)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"downstream: non-finite trainer loss {losses}")
+    if abs(losses[0] - at_init) > 0.5:
+        fail(f"downstream: first loss {losses[0]:.4f} not within 0.5 of "
+             f"{at_init:.4f}")
+    ckpts = sorted(d for d in os.listdir(out_dir) if d.startswith("checkpoint-"))
+    if not ckpts:
+        fail("downstream: the trainer saved no checkpoint")
+    # each boundary's time from its StepRecorder event; the first pays the
+    # warm-up (and the kernels' build when nothing was built before)
+    steps = [e for e in _jsonl(events_path) if e.get("event") == "step.record"]
+    if len(steps) != DOWN_BOUNDARIES:
+        fail(f"downstream: {len(steps)} step records for {DOWN_BOUNDARIES} "
+             f"boundaries")
+    rest = steps[1:]
+    med = lambda xs: statistics.median(xs) if xs else None
+    busy_s = sum(e["dur_s"] for e in rest)
+    out = dict(
+        wall_s=wall_s, global_steps=[r["step"] for r in records],
+        group_sizes=[r["group_size"] for r in records], losses=losses,
+        first_loss_at_init=at_init,
+        boundary_ms=[e["dur_s"] * 1e3 for e in steps],
+        stepped=[bool(e.get("stepped")) for e in steps],
+        stepped_boundary_ms=med([e["dur_s"] * 1e3 for e in rest if e.get("stepped")]),
+        other_boundary_ms=med([e["dur_s"] * 1e3 for e in rest if not e.get("stepped")]),
+        phases_ms={k: med([e["phases"].get(k, 0.0) * 1e3 for e in rest])
+                   for k in sorted({k for e in rest for k in e.get("phases", {})})},
+        samples_per_s=2 * DOWN_BATCH * len(rest) / busy_s,
+        tokens_per_s=2 * DOWN_BATCH * DOWN_SEQ * len(rest) / busy_s,
+        kernel_launches=records[-1]["kernel_launches"],
+        boundaries=records[-1]["boundaries"],
+        max_memory_allocated=records[-1].get("max_memory_allocated"),
+        checkpoint=os.path.join(out_dir, ckpts[-1]), output_dir=out_dir)
+    log(f"  trainer: {json.dumps(out)}")
+    return out
+
+
+def _eval_flags(seed: int, holdout: str, ckpt_dir: str, impl: str) -> list:
+    base = ["--training.model_size", "large",
+            "--training.per_device_batch_size", str(DOWN_BATCH),
+            "--training.seq_length", str(DOWN_SEQ),
+            "--training.dataset_path", holdout,
+            "--training.output_dir", ckpt_dir, "--training.seed", str(seed),
+            "--eval.max_batches", str(DOWN_EVAL_BATCHES)]
+    if impl == "flash":
+        return base + ["--training.attention_impl", "flash",
+                       "--training.remat_policy", "fused_ln"]
+    return base + ["--training.attention_impl", "dense"]
+
+
+def _eval_batch_ms(seed: int, holdout: str, ckpt_dir: str, impl: str) -> float:
+    """One held-out batch's forward and loss, as ``run_eval`` runs it, between
+    CUDA events (median of 5, launches included)."""
+    from dedloc_tpu_torch.core.config import parse_config
+    from dedloc_tpu_torch.data.disk import tokenized_dataset_batches
+    from dedloc_tpu_torch.roles import evaluate
+    from dedloc_tpu_torch.roles.common import (
+        build_loss_fn, build_model, drop_collator_keys,
+    )
+    from dedloc_tpu_torch.utils.checkpoint import load_latest_checkpoint
+
+    tr = parse_config(evaluate.EvalCLIArguments,
+                      _eval_flags(seed, holdout, ckpt_dir, impl)).training
+    cfg, model = build_model(tr.model_size, tr.remat_policy, tr.attention_impl,
+                             device="cuda")
+    evaluate._restore(model, load_latest_checkpoint(ckpt_dir)[1])
+    loss_fn = build_loss_fn(model)
+    params = dict(model.named_parameters())
+    batch = drop_collator_keys(next(tokenized_dataset_batches(
+        holdout, cfg, DOWN_BATCH, DOWN_SEQ, seed)), device="cuda")
+    with torch.no_grad():
+        return event_ms(lambda: loss_fn(params, batch), reps=5)
+
+
+def downstream_eval(seed: int, holdout: str, ckpt_dir: str) -> dict:
+    """The evaluator CLI on the trainer's checkpoint over the held-out
+    shards: flash + fused_ln (kernels #1, #5) and dense + plain LN; then the
+    flash run again in this process, its launches counted."""
+    import contextlib
+
+    from dedloc_tpu_torch.core.config import parse_config
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+    from dedloc_tpu_torch.roles.evaluate import EvalCLIArguments, run_eval
+
+    cli = {}
+    for impl in ("flash", "dense"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dedloc_tpu_torch.roles.evaluate",
+             *_eval_flags(seed, holdout, ckpt_dir, impl)],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode:
+            fail(f"downstream: the {impl} evaluator exited {proc.returncode}:"
+                 f"\n{proc.stderr[-3000:]}")
+        cli[impl] = json.loads(proc.stdout.strip().splitlines()[-1])
+        cli[impl]["wall_s"] = time.perf_counter() - t0
+        log(f"  evaluate ({impl}): {json.dumps(cli[impl])}")
+    args = parse_config(EvalCLIArguments,
+                        _eval_flags(seed, holdout, ckpt_dir, "flash"))
+    wrappers = fa.WRAPPERS + fl.WRAPPERS
+    for w in wrappers:
+        w.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):  # its JSON line
+        again = run_eval(args, args.eval)
+    launches = {w.__name__: w.launches for w in wrappers}
+    n = DOWN_EVAL_BATCHES
+    expected = {"flash_fwd": 24 * n, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                "ln_fwd": 48 * n, "ln_bwd": 0}
+    if launches != expected:
+        fail(f"downstream: the flash evaluator launched {launches} != {expected}")
+    flash = {k: v for k, v in cli["flash"].items() if k != "wall_s"}
+    if again != flash:
+        fail(f"downstream: a second flash evaluation differs: {again} vs {flash}")
+    for key in ("mlm_loss", "sop_loss"):
+        if not all(math.isfinite(cli[i][key]) for i in cli):
+            fail(f"downstream: non-finite eval {key}")
+    gap = abs(cli["flash"]["mlm_loss"] - cli["dense"]["mlm_loss"])
+    log(f"  flash vs dense mlm_loss {gap:.3e} (tol {DOWN_EVAL_MLM_TOL:.0e}); "
+        f"a second flash run identical; launches {launches}")
+    if not gap <= DOWN_EVAL_MLM_TOL:
+        fail(f"downstream: flash mlm_loss {cli['flash']['mlm_loss']} vs dense "
+             f"{cli['dense']['mlm_loss']}: {gap:.3e} > {DOWN_EVAL_MLM_TOL:.0e}")
+    ms = {impl: _eval_batch_ms(seed, holdout, ckpt_dir, impl)
+          for impl in ("flash", "dense")}
+    log(f"  ms per eval batch (12 x 512): {ms}")
+    return dict(flash=cli["flash"], dense=cli["dense"], mlm_gap=gap,
+                mlm_tol=DOWN_EVAL_MLM_TOL,
+                sop_gap=abs(cli["flash"]["sop_loss"] - cli["dense"]["sop_loss"]),
+                repeat_identical=True, launches=launches,
+                ms_per_batch=ms)
+
+
+def _ner_examples(sentences: list) -> list:
+    """Word lists with BIO tags from a fixed rule: a capitalised word after
+    the first opens an entity (PER, ORG or LOC by its length mod 3) and the
+    capitalised words right after it continue it."""
+    kinds = ("PER", "ORG", "LOC")
+    labels = {t: i for i, t in enumerate(
+        ["O", "B-PER", "I-PER", "B-ORG", "I-ORG", "B-LOC", "I-LOC"])}
+    examples = []
+    for sent in sentences:
+        words = _WORDS.findall(sent)
+        tags, open_kind = [], None
+        for i, w in enumerate(words):
+            if i and w[:1].isupper():
+                if open_kind is None:
+                    open_kind = kinds[len(w) % 3]
+                    tags.append(labels["B-" + open_kind])
+                else:
+                    tags.append(labels["I-" + open_kind])
+            else:
+                open_kind = None
+                tags.append(labels["O"])
+        examples.append({"tokens": words, "ner_tags": tags})
+    return examples
+
+
+def downstream_finetune(seed: int, vocab: WordVocab, docs: list,
+                        trainer_dir: str) -> dict:
+    """``run_ner`` and ``run_ncc`` at the reference defaults (128 tokens,
+    batch 32, lr 5e-5, classifier dropout 0.1) for one epoch of 8 steps,
+    the backbone warm-started from the trainer's checkpoint; examples from
+    corpus sentences with labels from fixed rules."""
+    from dedloc_tpu_torch.data.streaming import split_sentences
+    from dedloc_tpu_torch.finetune import driver, ncc, ner
+    from dedloc_tpu_torch.finetune.driver import FinetuneArguments
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+
+    sentences = [s for d in docs for s in split_sentences(d)
+                 if 4 <= len(_WORDS.findall(s)) <= 60]
+    need = FT_TRAIN + FT_EVAL
+    if len(sentences) < need:
+        fail(f"downstream: {len(sentences)} corpus sentences < {need}")
+    sentences = sentences[:need]
+    backbone = ner.load_backbone_params(trainer_dir)
+    cfg = ner.resolve_model_config("large", 30000, FT_SEQ)
+    train = FinetuneArguments(num_train_epochs=1, per_device_batch_size=FT_BATCH,
+                              learning_rate=5e-5, classifier_dropout=0.1,
+                              seed=seed)
+
+    def tokenize_words(words):
+        ids = [vocab.ids.get(w.lower(), 1) for w in words]
+        return {"input_ids": [2] + ids + [3],
+                "word_ids": [None] + list(range(len(ids))) + [None]}
+
+    def tokenize_text(text):
+        return [2] + vocab.encode(text) + [3]
+
+    ncc_examples = [{"text": s, "label": len(_WORDS.findall(s)) % 6}
+                    for s in sentences]
+    ner_examples = _ner_examples(sentences)
+    tasks = {
+        "ner": (ner, lambda: ner.run_ner(
+            ner.NerArguments(max_seq_length=FT_SEQ, train=train), cfg,
+            ner_examples[:FT_TRAIN], ner_examples[FT_TRAIN:], tokenize_words,
+            init_params=backbone, sep_token_id=3, device="cuda"),
+            lambda: ner.encode_ner_examples(ner_examples[FT_TRAIN:],
+                                            tokenize_words, FT_SEQ,
+                                            sep_token_id=3),
+            "eval_f1"),
+        "ncc": (ncc, lambda: ncc.run_ncc(
+            ncc.NccArguments(max_seq_length=FT_SEQ, train=train), cfg,
+            ncc_examples[:FT_TRAIN], ncc_examples[FT_TRAIN:], tokenize_text,
+            init_params=backbone, sep_token_id=3, device="cuda"),
+            lambda: ncc.encode_ncc_examples(ncc_examples[FT_TRAIN:],
+                                            tokenize_text, FT_SEQ,
+                                            sep_token_id=3),
+            "eval_accuracy"),
+    }
+    wrappers = fa.WRAPPERS + fl.WRAPPERS
+    real_batches, real_finetune = driver._batches, driver.finetune
+    out = {"train_examples": FT_TRAIN, "eval_examples": FT_EVAL,
+           "sentences": len(sentences)}
+    for task, (module, run, eval_data, metric) in tasks.items():
+        step_s, seen = [], {}
+
+        def timed_batches(*a, **kw):
+            # a step ends in the driver's float(loss): the time between two
+            # batches handed out is one train step
+            t = time.perf_counter()
+            for b in real_batches(*a, **kw):
+                yield b
+                now = time.perf_counter()
+                step_s.append(now - t)
+                t = now
+
+        def recording(model, *a, **kw):
+            seen["model"] = model
+            return real_finetune(model, *a, **kw)
+
+        driver._batches, module.finetune = timed_batches, recording
+        for w in wrappers:
+            w.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            best, history = run()
+        finally:
+            driver._batches, module.finetune = real_batches, real_finetune
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {w.__name__: w.launches for w in wrappers}
+        if any(launches.values()):
+            fail(f"downstream: {task} fine-tuning launched {launches}")
+        if len(history) != 1 or len(step_s) != 8:
+            fail(f"downstream: {task} ran {len(history)} epochs, "
+                 f"{len(step_s)} steps (want 1, 8)")
+        record = history[0]
+        if not (math.isfinite(record["train_loss"])
+                and math.isfinite(record["eval_loss"]) and metric in record):
+            fail(f"downstream: {task} record {record}")
+        model = seen["model"]
+        if next(model.parameters()).device.type != "cuda":
+            fail(f"downstream: {task} did not run on the card")
+        for name, p in model.named_parameters():
+            if not torch.equal(p.detach(), best[name]):
+                fail(f"downstream: {task} model does not hold the best params")
+        again, _ = driver.evaluate(model, eval_data(), FT_BATCH)
+        if not abs(again - record["eval_loss"]) <= 1e-5 * abs(record["eval_loss"]):
+            fail(f"downstream: {task} restored params evaluate to {again}, "
+                 f"the best epoch's to {record['eval_loss']}")
+        ms = statistics.median(step_s[1:]) * 1e3
+        out[task] = dict(history=history, wall_s=wall_s,
+                         step_ms=[t * 1e3 for t in step_s], ms_per_step=ms,
+                         samples_per_s=FT_BATCH / (ms / 1e3),
+                         max_memory_allocated=peak, restored_eval_loss=again,
+                         launches=launches)
+        log(f"  {task}: {json.dumps(out[task])}")
+        del model, best, seen
+    return out
+
+
+def downstream_heads(seed: int) -> dict:
+    """Both heads on a tiny config, the same weights on the card and the
+    CPU, dropout 0: logits and classification_loss at phase_reference's
+    tolerances (bf16 logits as tests/test_torch_albert.py's)."""
+    from dedloc_tpu_torch.models.albert import (
+        AlbertConfig, AlbertForSequenceClassification,
+        AlbertForTokenClassification, classification_loss, init_weights,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(5, 512, (4, 64), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1, 40:] = 0
+    out = {}
+    for cls, shape in ((AlbertForTokenClassification, (4, 64)),
+                       (AlbertForSequenceClassification, (4,))):
+        labels = torch.randint(0, 7, shape, generator=gen)
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = cls(AlbertConfig.tiny(), num_labels=7, classifier_dropout=0.0)
+            init_weights(model, torch.Generator().manual_seed(seed))
+            model.to(device)
+            with torch.no_grad():
+                logits = model(ids.to(device), mask.to(device))
+                loss, _ = classification_loss(logits, labels.to(device))
+            res[device] = (logits.cpu(), float(loss))
+        err = check_close(f"{cls.__name__} logits card vs cpu", res["cuda"][0],
+                          res["cpu"][0], 5e-2, 5e-2)
+        gap = abs(res["cuda"][1] - res["cpu"][1])
+        if not gap <= 2e-2:
+            fail(f"downstream: {cls.__name__} loss card {res['cuda'][1]} vs "
+                 f"cpu {res['cpu'][1]} (tol 2e-2)")
+        out[cls.__name__] = dict(logits_max_abs_err=err, loss_gap=gap)
+    return out
+
+
+def phase_downstream(seed: int) -> dict:
+    """The sahajBERT chain on the card: real text -> shards -> a trainer
+    peer -> the held-out evaluator -> NER and NCC fine-tuning."""
+    from dedloc_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="downstream-", dir=_build.BUILD_DIR)
+    try:
+        data, vocab, docs = downstream_shards(seed, work)
+        trainer = downstream_trainer(seed, work, data["train"]["path"])
+        evals = downstream_eval(seed, data["holdout"]["path"],
+                                trainer["output_dir"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        finetune = downstream_finetune(seed, vocab, docs, trainer["output_dir"])
+        heads = downstream_heads(seed)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(data=data, trainer=trainer, eval=evals, finetune=finetune,
+                heads=heads, phase_s=time.perf_counter() - t0)
+
+
 def _kind(name: str) -> str:
     if "flash_" in name or "_ln_" in name:
         return "port kernels"
@@ -1215,6 +1785,7 @@ def main(argv=None) -> int:
     path = phase_path(args.seed)
     longctx = phase_longctx(args.seed)
     collab = phase_collab(args.seed)
+    downstream = phase_downstream(args.seed)
 
     rows = []
     for k in kernels:
@@ -1235,6 +1806,12 @@ def main(argv=None) -> int:
             # the same kernel in the two trainer peers of the collab phase
             rows[-1]["launches_collab"] = sum(
                 rep["kernel_launches"][name] for rep in collab["peers"].values())
+            # the downstream phase's trainer peer (4 boundaries) and its
+            # in-process flash evaluation (8 batches)
+            rows[-1]["launches_downstream_trainer"] = \
+                downstream["trainer"]["kernel_launches"][name]
+            rows[-1]["launches_downstream_eval"] = \
+                downstream["eval"]["launches"][name]
         if rows[-1]["route"] == "cuda":
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with
@@ -1246,6 +1823,7 @@ def main(argv=None) -> int:
     print(json.dumps({"path": path}))
     print(json.dumps({"longctx": longctx}))
     print(json.dumps({"collab": collab}))
+    print(json.dumps({"downstream": downstream}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,7 @@ from dedloc_tpu_torch.averaging.partition import FlatTree, TreeLayout
 from dedloc_tpu_torch.models.convert import grad_name
 from dedloc_tpu_torch.telemetry import registry as telemetry
 from dedloc_tpu_torch.telemetry.registry import monotonic_clock
+from dedloc_tpu_torch.utils.device import divide
 from dedloc_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -66,15 +67,6 @@ def named_device_leaves(tree: Mapping[str, torch.Tensor]) -> List[Tuple[str, tor
         jname, transpose = grad_name(name, leaf.ndim)
         out.append((jname, leaf.t() if transpose else leaf))
     return out
-
-
-def divide(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` as an IEEE division on every device. On CUDA, PyTorch
-    applies a Python-number divisor as a multiply by its reciprocal; a 0-d
-    tensor on the same device keeps it a division, bit-identical to the
-    host path and to the JAX package (x / 3 != x * (1 / 3) in fp32). The
-    divisor is filled on the device, so nothing waits for the stream."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _chunk_bounds(total: int, chunk: int) -> List[Tuple[int, int]]:

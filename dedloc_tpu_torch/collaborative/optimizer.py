@@ -37,7 +37,7 @@ import torch
 
 from dedloc_tpu_torch.averaging.allreduce import DEFAULT_CHUNK_SIZE
 from dedloc_tpu_torch.averaging.averager import DecentralizedAverager
-from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline, divide
+from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
 from dedloc_tpu_torch.averaging.partition import FlatTree
 from dedloc_tpu_torch.collaborative.error_feedback import ErrorFeedback
 from dedloc_tpu_torch.collaborative.progress import (
@@ -59,6 +59,7 @@ from dedloc_tpu_torch.parallel.train_step import (
     zeros_like_grads,
 )
 from dedloc_tpu_torch.telemetry.steps import block_on_device
+from dedloc_tpu_torch.utils.device import divide
 from dedloc_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)

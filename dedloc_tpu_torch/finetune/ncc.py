@@ -1,0 +1,149 @@
+"""Sequence-classification (news category) fine-tune driver, in PyTorch.
+
+Port of ``dedloc_tpu/finetune/ncc.py``: the encoding, the metric and the CLI
+arguments are the JAX package's; the model and the loop are the port's, on
+the card unless the caller names another device.
+
+Capability parity with sahajbert/train_ncc.py: indic_glue sna.bn sequence
+classification with AutoModelForSequenceClassification-equivalent head,
+accuracy metric (train_ncc.py:197-205), early stopping on eval loss.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dedloc_tpu_torch.core.config import parse_config
+from dedloc_tpu_torch.finetune.driver import (
+    FinetuneArguments,
+    finetune,
+    load_split_examples,
+)
+from dedloc_tpu_torch.finetune.metrics import accuracy_score
+from dedloc_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification
+from dedloc_tpu_torch.utils.device import DeviceLike
+
+logger = logging.getLogger(__name__)
+
+# indic_glue sna.bn label set (soham news article categories)
+SNA_BN_LABELS = ["kolkata", "state", "national", "international", "sports", "entertainment"]
+
+
+@dataclasses.dataclass
+class NccArguments:
+    model_checkpoint: str = ""  # checkpoint dir; "" = fresh backbone init
+    tokenizer_path: str = ""  # tokenizer.json; "" = use model_checkpoint dir
+    dataset_name: str = "indic_glue"  # hub id or local data-files dir
+    dataset_config_name: str = "sna.bn"
+    model_size: str = "large"  # AlbertConfig.named: tiny | large
+    max_seq_length: int = 128
+    train: FinetuneArguments = dataclasses.field(default_factory=FinetuneArguments)
+
+
+def encode_ncc_examples(
+    examples: Sequence[Dict],
+    tokenize_text: Callable[[str], Sequence[int]],
+    max_seq_length: int,
+    sep_token_id: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """(text, label) pairs -> fixed-shape arrays for the pooled classifier.
+
+    When truncating, the final position is rewritten to ``sep_token_id`` so
+    long inputs keep the ``[CLS] ... [SEP]`` layout the backbone was
+    pretrained on (HF truncation preserves special tokens the same way).
+    """
+    ids = np.zeros((len(examples), max_seq_length), np.int32)
+    mask = np.zeros_like(ids)
+    labels = np.zeros((len(examples),), np.int32)
+    for i, ex in enumerate(examples):
+        tok_ids = list(tokenize_text(ex["text"]))
+        if len(tok_ids) > max_seq_length:
+            tok_ids = tok_ids[:max_seq_length]
+            if sep_token_id is not None:
+                tok_ids[-1] = sep_token_id
+        ids[i, : len(tok_ids)] = tok_ids
+        mask[i, : len(tok_ids)] = 1
+        labels[i] = int(ex["label"])
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def ncc_compute_metrics(eval_labels: np.ndarray):
+    def compute(preds: np.ndarray) -> Dict[str, float]:
+        return {
+            "eval_accuracy": accuracy_score(
+                [int(p) for p in preds], [int(l) for l in eval_labels]
+            )
+        }
+
+    return compute
+
+
+def run_ncc(
+    args: NccArguments,
+    model_cfg: AlbertConfig,
+    train_examples: Sequence[Dict],
+    eval_examples: Sequence[Dict],
+    tokenize_text: Callable[[str], Sequence[int]],
+    init_params: Optional[Mapping[str, torch.Tensor]] = None,
+    label_list: Sequence[str] = SNA_BN_LABELS,
+    sep_token_id: Optional[int] = None,
+    device: DeviceLike = None,
+):
+    train_data = encode_ncc_examples(
+        train_examples, tokenize_text, args.max_seq_length,
+        sep_token_id=sep_token_id,
+    )
+    eval_data = encode_ncc_examples(
+        eval_examples, tokenize_text, args.max_seq_length,
+        sep_token_id=sep_token_id,
+    )
+    model = AlbertForSequenceClassification(
+        model_cfg, num_labels=len(label_list),
+        classifier_dropout=args.train.classifier_dropout,
+    )
+    return finetune(
+        model,
+        init_params,
+        train_data,
+        eval_data,
+        args.train,
+        compute_metrics=ncc_compute_metrics(eval_data["labels"]),
+        device=device,
+    )
+
+
+def main(argv=None) -> None:
+    from dedloc_tpu_torch.roles.common import force_cpu_if_requested
+
+    device = force_cpu_if_requested()
+    args = parse_config(NccArguments, argv)
+    train_examples, eval_examples = load_split_examples(
+        args.dataset_name, args.dataset_config_name
+    )
+    from dedloc_tpu_torch.finetune.ner import (
+        load_backbone_params,
+        resolve_model_config,
+        resolve_tokenizer,
+    )
+
+    tok = resolve_tokenizer(args.tokenizer_path, args.model_checkpoint)
+    init_params = load_backbone_params(args.model_checkpoint)
+    _, history = run_ncc(
+        args,
+        resolve_model_config(args.model_size, tok.vocab_size, args.max_seq_length),
+        train_examples,
+        eval_examples,
+        tok.encode_ids,
+        init_params=init_params,
+        sep_token_id=tok.sep_id,
+        device=device,
+    )
+    logger.info("NCC final: %s", history[-1] if history else {})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,205 @@
+"""Token-classification (NER) fine-tune driver, in PyTorch.
+
+Port of ``dedloc_tpu/finetune/ner.py``: the encoding, the metrics and the CLI
+arguments are the JAX package's; the model and the loop are the port's, on
+the card unless the caller names another device.
+
+Capability parity with sahajbert/train_ner.py: wikiann/bn word-level NER,
+label alignment onto sub-tokens (special tokens and continuations -> -100),
+pad-to-max static shapes, per-epoch eval with seqeval-style span P/R/F1 and
+early stopping on eval loss. The dataset fetch (``driver.load_split_examples``)
+takes a hub id or a local data-files dir; offline tests can also inject
+word/tag lists directly via ``run_ner``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dedloc_tpu_torch.core.config import parse_config
+from dedloc_tpu_torch.finetune.driver import (
+    FinetuneArguments,
+    evaluate,
+    finetune,
+    load_split_examples,
+)
+from dedloc_tpu_torch.finetune.metrics import align_labels_with_words, span_f1
+from dedloc_tpu_torch.models.albert import AlbertConfig, AlbertForTokenClassification
+from dedloc_tpu_torch.utils.device import DeviceLike
+
+logger = logging.getLogger(__name__)
+
+# wikiann NER tag set (train_ner.py reads it from dataset features; fixed here
+# so offline runs agree with the hub copy)
+WIKIANN_LABELS = ["O", "B-PER", "I-PER", "B-ORG", "I-ORG", "B-LOC", "I-LOC"]
+
+
+@dataclasses.dataclass
+class NerArguments:
+    model_checkpoint: str = ""  # checkpoint dir; "" = fresh backbone init
+    tokenizer_path: str = ""  # tokenizer.json; "" = use model_checkpoint dir
+    dataset_name: str = "wikiann"  # hub id or local data-files dir
+    dataset_config_name: str = "bn"
+    model_size: str = "large"  # AlbertConfig.named: tiny | large
+    max_seq_length: int = 128
+    label_all_tokens: bool = False
+    train: FinetuneArguments = dataclasses.field(default_factory=FinetuneArguments)
+
+
+def encode_ner_examples(
+    examples: Sequence[Dict],
+    tokenize_words: Callable[[List[str]], Dict],
+    max_seq_length: int,
+    label_all_tokens: bool = False,
+    sep_token_id: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Word lists + word-level tags -> fixed-shape model arrays.
+
+    ``tokenize_words(words)`` must return {"input_ids", "word_ids"} (the
+    is_split_into_words tokenizer contract of train_ner.py:184-191); output is
+    padded/truncated to ``max_seq_length``. When truncating, the final
+    position becomes ``sep_token_id`` (word_id None, label -100) so long
+    inputs keep the pretrained ``[CLS] ... [SEP]`` layout.
+    """
+    ids = np.zeros((len(examples), max_seq_length), np.int32)
+    mask = np.zeros_like(ids)
+    labels = np.full_like(ids, -100)
+    for i, ex in enumerate(examples):
+        enc = tokenize_words(list(ex["tokens"]))
+        tok_ids = list(enc["input_ids"])[:max_seq_length]
+        word_ids = list(enc["word_ids"])[:max_seq_length]
+        if len(enc["input_ids"]) > max_seq_length and sep_token_id is not None:
+            tok_ids[-1] = sep_token_id
+            word_ids[-1] = None
+        lab = align_labels_with_words(word_ids, ex["ner_tags"], label_all_tokens)
+        ids[i, : len(tok_ids)] = tok_ids
+        mask[i, : len(tok_ids)] = 1
+        labels[i, : len(lab)] = lab
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def ner_compute_metrics(
+    eval_labels: np.ndarray, label_list: Sequence[str] = WIKIANN_LABELS
+):
+    """compute_metrics seam: drop -100 positions, map ids -> tags, span F1
+    (the reference's seqeval post-processing, train_ner.py)."""
+
+    def compute(preds: np.ndarray) -> Dict[str, float]:
+        pred_tags, ref_tags = [], []
+        for p_row, l_row in zip(preds, eval_labels):
+            keep = l_row != -100
+            pred_tags.append([label_list[int(p)] for p in p_row[keep]])
+            ref_tags.append([label_list[int(l)] for l in l_row[keep]])
+        m = span_f1(pred_tags, ref_tags)
+        return {f"eval_{k}": v for k, v in m.items()}
+
+    return compute
+
+
+def run_ner(
+    args: NerArguments,
+    model_cfg: AlbertConfig,
+    train_examples: Sequence[Dict],
+    eval_examples: Sequence[Dict],
+    tokenize_words: Callable[[List[str]], Dict],
+    init_params: Optional[Mapping[str, torch.Tensor]] = None,
+    label_list: Sequence[str] = WIKIANN_LABELS,
+    sep_token_id: Optional[int] = None,
+    device: DeviceLike = None,
+):
+    """Returns (best_params, history). Injectable data/tokenizer for offline
+    tests; the CLI main wires wikiann/bn + the trained tokenizer.
+    ``init_params``: a backbone in the port's names (``load_backbone_params``)."""
+    train_data = encode_ner_examples(
+        train_examples, tokenize_words, args.max_seq_length,
+        args.label_all_tokens, sep_token_id=sep_token_id,
+    )
+    eval_data = encode_ner_examples(
+        eval_examples, tokenize_words, args.max_seq_length,
+        args.label_all_tokens, sep_token_id=sep_token_id,
+    )
+    model = AlbertForTokenClassification(
+        model_cfg, num_labels=len(label_list),
+        classifier_dropout=args.train.classifier_dropout,
+    )
+    return finetune(
+        model,
+        init_params,
+        train_data,
+        eval_data,
+        args.train,
+        compute_metrics=ner_compute_metrics(eval_data["labels"], label_list),
+        device=device,
+    )
+
+
+def resolve_tokenizer(tokenizer_path: str, model_checkpoint: str):
+    """Load the tokenizer from --tokenizer_path, falling back to the
+    checkpoint dir; fail with a clear message rather than an opaque
+    tokenizers error when neither is given."""
+    from dedloc_tpu_torch.data.tokenizer import load_fast_tokenizer
+
+    path = tokenizer_path or model_checkpoint
+    if not path:
+        raise ValueError(
+            "a trained tokenizer is required: pass --tokenizer_path "
+            "(tokenizer.json) or --model_checkpoint (a dir containing one)"
+        )
+    return load_fast_tokenizer(path)
+
+
+def load_backbone_params(model_checkpoint: str):
+    """The params of the newest checkpoint in ``model_checkpoint`` (either
+    package's trainer writes the same names) in the port's names, on the
+    CPU; None without a checkpoint."""
+    if not model_checkpoint:
+        return None
+    from dedloc_tpu_torch.models.convert import params_from_checkpoint
+    from dedloc_tpu_torch.utils.checkpoint import load_latest_checkpoint
+
+    ckpt = load_latest_checkpoint(model_checkpoint)
+    return None if ckpt is None else params_from_checkpoint(ckpt[1])
+
+
+def resolve_model_config(model_size: str, vocab_size: int, max_seq_length: int):
+    """--model_size -> AlbertConfig, vocab sized to the tokenizer (the
+    reference resizes embeddings for the Bengali vocab the same way,
+    sahajbert/run_first_peer.py:76-77). A position table grown past the
+    constructor default only applies to fresh backbones — warm starts are
+    shape-checked against the checkpoint in driver.finetune."""
+    ctor = AlbertConfig.named(model_size)
+    cfg = ctor(vocab_size=vocab_size)
+    if cfg.max_position_embeddings < max_seq_length:
+        cfg = ctor(vocab_size=vocab_size, max_position_embeddings=max_seq_length)
+    return cfg
+
+
+def main(argv=None) -> None:
+    from dedloc_tpu_torch.roles.common import force_cpu_if_requested
+
+    device = force_cpu_if_requested()
+    args = parse_config(NerArguments, argv)
+    train_examples, eval_examples = load_split_examples(
+        args.dataset_name, args.dataset_config_name
+    )
+    tok = resolve_tokenizer(args.tokenizer_path, args.model_checkpoint)
+    init_params = load_backbone_params(args.model_checkpoint)
+    _, history = run_ner(
+        args,
+        resolve_model_config(args.model_size, tok.vocab_size, args.max_seq_length),
+        train_examples,
+        eval_examples,
+        tok.tokenize_words,
+        init_params=init_params,
+        sep_token_id=tok.sep_id,
+        device=device,
+    )
+    logger.info("NER final: %s", history[-1] if history else {})
+
+
+if __name__ == "__main__":
+    main()

@@ -14,11 +14,17 @@ follow it:
 - the encoder applies ONE shared block ``num_hidden_layers`` times, each
   application rematerialised under ``cfg.remat`` with the JAX package's
   policy of the same name (``remat_policy_object``);
-- the mask is an additive ``-1e9`` key bias; the tied MLM decoder and the
-  SOP head return fp32 logits.
+- the mask is an additive ``-1e9`` key bias; the tied MLM decoder, the
+  SOP head and the fine-tune heads return fp32 logits;
+- dropout in training mode (``deterministic=False``) sits where flax's
+  ``nn.Dropout`` sits (embeddings, dense attention probabilities, attention
+  and FFN outputs, the fine-tune heads' input) and draws from an explicit
+  CPU ``torch.Generator``, the dropout key: each site's mask comes from a
+  generator on the tensor's device seeded by one draw of it, so a
+  rematerialised block redraws the masks its forward drew.
 
 Not ported yet (they raise ``NotImplementedError``): ``ring`` attention,
-``pipe_mesh``, ``moe_experts > 0``, and dropout in training mode.
+``pipe_mesh`` and ``moe_experts > 0``.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from dedloc_tpu_torch.ops import fused_ln as _fused_ln
 from dedloc_tpu_torch.ops.flash_attention import flash_attention
 from dedloc_tpu_torch.ops.fused_ln import ln_residual, ln_residual_reference
 from dedloc_tpu_torch.parallel.ring_attention import blockwise_attention
+from dedloc_tpu_torch.utils.device import divide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,12 +201,47 @@ def _check_supported(cfg: AlbertConfig) -> None:
         )
 
 
-def _no_training_dropout(rate: float, deterministic: bool, what: str) -> None:
-    if rate > 0.0 and not deterministic:
-        raise NotImplementedError(
-            f"{what} dropout in training mode is not ported (the reference "
-            "recipe uses 0.0)"
-        )
+# ----------------------------------------------------------------- dropout
+
+
+def _draw_seed(key: Optional[torch.Generator]) -> Optional[int]:
+    """One draw of the CPU dropout key (no device sync): the seed of one
+    dropout site or block application (JAX's key split)."""
+    if key is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (), generator=key))
+
+
+def _site_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _dropout_key(rate: float, deterministic: bool,
+                 generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """The dropout key a forward draws from: None when nothing drops
+    (deterministic, or every rate 0); raises in training mode without one,
+    as flax does without a "dropout" rng."""
+    if deterministic or rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout in training mode (deterministic=False) "
+                         "needs a generator, the CPU dropout key")
+    return generator
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    divide what is kept by that probability in x's dtype; the identity
+    without a generator (deterministic) or at rate 0. ``generator`` lives on
+    x's device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, divide(x, keep), torch.zeros_like(x))
 
 
 class Dense(nn.Linear):
@@ -269,7 +311,10 @@ class AlbertSelfAttention(nn.Module):
         self.dense = Dense(h, h, cfg.dtype)
         self.layernorm = AddLayerNorm(cfg)
 
-    def forward(self, hidden, kv_bias, deterministic: bool = True):
+    def forward(self, hidden, kv_bias,
+                generator: Optional[torch.Generator] = None):
+        """``generator``: this block application's dropout generator on
+        hidden's device (None: no dropout)."""
         cfg = self.cfg
         b, s, h = hidden.shape
         nh = cfg.num_attention_heads
@@ -280,13 +325,6 @@ class AlbertSelfAttention(nn.Module):
         q = self.query(hidden, name).reshape(b, s, nh, hd)
         k = self.key(hidden, name).reshape(b, s, nh, hd)
         v = self.value(hidden, name).reshape(b, s, nh, hd)
-        if (cfg.attention_impl in ("flash", "blockwise")
-                and cfg.attention_dropout_prob > 0.0 and not deterministic):
-            raise ValueError(
-                f"attention_impl={cfg.attention_impl!r} does not support "
-                "attention dropout in training (the reference recipe uses "
-                "0.0); use attention_impl='dense' or attention_dropout_prob=0"
-            )
         if cfg.attention_impl == "flash":
             ctx = flash_attention(q, k, v, kv_bias).reshape(b, s, h)
         elif cfg.attention_impl == "blockwise":
@@ -297,15 +335,13 @@ class AlbertSelfAttention(nn.Module):
             ).reshape(b, s, h)
         else:
             # fp32 logits + softmax; bf16 probabilities and context
-            _no_training_dropout(cfg.attention_dropout_prob, deterministic,
-                                 "attention")
             scale = 1.0 / math.sqrt(hd)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             logits = logits * scale + kv_bias[:, None, None, :]
             probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            probs = dropout(probs, cfg.attention_dropout_prob, generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
-        out = self.dense(ctx)
-        _no_training_dropout(cfg.hidden_dropout_prob, deterministic, "hidden")
+        out = dropout(self.dense(ctx), cfg.hidden_dropout_prob, generator)
         return self.layernorm(out, hidden)
 
 
@@ -321,16 +357,19 @@ class AlbertLayer(nn.Module):
                                 cfg.dtype)
         self.layernorm = AddLayerNorm(cfg)
 
-    def forward(self, hidden, kv_bias, deterministic: bool = True):
-        hidden = self.attention(hidden, kv_bias, deterministic)
+    def forward(self, hidden, kv_bias, seed: Optional[int] = None):
+        """``seed``: this application's dropout seed (None: no dropout). The
+        generator is made here from it, so a remat recompute of the block
+        redraws the masks of its forward."""
+        generator = _site_generator(seed, hidden.device)
+        hidden = self.attention(hidden, kv_bias, generator)
         # named for the fused_ln* policies: the up-projection (gelu's input)
         # and the gelu output (saved by fused_ln_gelu only)
         ffn = self.ffn(hidden, "ffn_up")
         with checkpoint_name("ffn_gelu"):
             ffn = F.gelu(ffn, approximate="tanh")
-        ffn = self.ffn_output(ffn)
-        _no_training_dropout(self.cfg.hidden_dropout_prob, deterministic,
-                             "hidden")
+        ffn = dropout(self.ffn_output(ffn), self.cfg.hidden_dropout_prob,
+                      generator)
         return self.layernorm(ffn, hidden)
 
 
@@ -354,18 +393,20 @@ class AlbertEncoder(nn.Module):
         self.cfg = cfg
         self.layer = _SharedLayer(cfg)
 
-    def forward(self, hidden, kv_bias, deterministic: bool = True):
+    def forward(self, hidden, kv_bias, key: Optional[torch.Generator] = None):
+        """``key``: the CPU dropout key (None: no dropout); each
+        application draws its own seed from it."""
         block = self.layer.block
         if self.cfg.remat and torch.is_grad_enabled():
             contexts = functools.partial(
                 create_selective_checkpoint_contexts,
                 remat_policy_object(self.cfg.remat_policy))
             for _ in range(self.cfg.num_hidden_layers):
-                hidden = checkpoint(block, hidden, kv_bias, deterministic,
+                hidden = checkpoint(block, hidden, kv_bias, _draw_seed(key),
                                     use_reentrant=False, context_fn=contexts)
             return hidden
         for _ in range(self.cfg.num_hidden_layers):
-            hidden = block(hidden, kv_bias, deterministic)
+            hidden = block(hidden, kv_bias, _draw_seed(key))
         return hidden
 
 
@@ -384,9 +425,21 @@ class AlbertModel(nn.Module):
         self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``generator``: the CPU dropout key, required in training mode
+        (``deterministic=False``) when a dropout rate is nonzero."""
         cfg = self.cfg
         b, s = input_ids.shape
+        if (cfg.attention_impl in ("flash", "blockwise")
+                and cfg.attention_dropout_prob > 0.0 and not deterministic):
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} does not support "
+                "attention dropout in training (the reference recipe uses "
+                "0.0); use attention_impl='dense' or attention_dropout_prob=0"
+            )
+        key = _dropout_key(cfg.hidden_dropout_prob + cfg.attention_dropout_prob,
+                           deterministic, generator)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
@@ -396,10 +449,11 @@ class AlbertModel(nn.Module):
                + self.position_embeddings(positions)[None]
                + self.token_type_embeddings(token_type_ids))
         emb = self.embeddings_layernorm(emb)
-        _no_training_dropout(cfg.hidden_dropout_prob, deterministic, "hidden")
+        emb = dropout(emb, cfg.hidden_dropout_prob,
+                      _site_generator(_draw_seed(key), emb.device))
         hidden = self.embedding_projection(emb)  # factorized: E -> hidden
         kv_bias = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
-        hidden = self.encoder(hidden, kv_bias, deterministic)
+        hidden = self.encoder(hidden, kv_bias, key)
         pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled
 
@@ -419,13 +473,14 @@ class AlbertForPreTraining(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True,
-                mlm_positions: Optional[torch.Tensor] = None
+                mlm_positions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``mlm_positions`` [B, P]: the MLM head runs only on those gathered
         positions (logits [B, P, vocab]); None covers every position."""
         cfg = self.cfg
         hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
-                                     deterministic)
+                                     deterministic, generator)
         if mlm_positions is not None:
             idx = mlm_positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
             hidden = torch.gather(hidden, 1, idx)
@@ -436,6 +491,47 @@ class AlbertForPreTraining(nn.Module):
         mlm_logits = x.float() @ table.float().t() + self.mlm_bias
         sop_logits = self.sop_classifier(pooled).float()
         return mlm_logits, sop_logits
+
+
+class _ClassificationHead(nn.Module):
+    """Backbone -> dropout(classifier_dropout) -> ``Dense(num_labels)``, fp32
+    logits: the JAX package's fine-tune heads, under the names ``albert``
+    and ``classifier`` (``models/convert.py`` maps them as they are)."""
+
+    pooled = False  # classify the pooled [CLS] output, else every position
+
+    def __init__(self, cfg: AlbertConfig, num_labels: int,
+                 classifier_dropout: float = 0.1):
+        super().__init__()
+        self.cfg = cfg
+        self.num_labels = num_labels
+        self.classifier_dropout = classifier_dropout
+        self.albert = AlbertModel(cfg)
+        self.classifier = Dense(cfg.hidden_size, num_labels, cfg.dtype)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the CPU dropout key, required in training mode."""
+        hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
+                                     deterministic, generator)
+        x = pooled if self.pooled else hidden
+        key = _dropout_key(self.classifier_dropout, deterministic, generator)
+        x = dropout(x, self.classifier_dropout,
+                    _site_generator(_draw_seed(key), x.device))
+        return self.classifier(x).float()
+
+
+class AlbertForTokenClassification(_ClassificationHead):
+    """A per-token classifier over the hidden states: logits [B, S, L]
+    (the NER head)."""
+
+
+class AlbertForSequenceClassification(_ClassificationHead):
+    """A classifier over the pooled [CLS] output: logits [B, L] (the news
+    category head)."""
+
+    pooled = True
 
 
 @torch.no_grad()
@@ -454,7 +550,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, (LayerNorm, AddLayerNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
-    model.mlm_bias.zero_()
+    if isinstance(model, AlbertForPreTraining):
+        model.mlm_bias.zero_()
     return model
 
 
@@ -475,6 +572,16 @@ def _masked_cross_entropy(logits, labels, mask):
 def _sop_loss(sop_logits, sop_labels):
     logp = torch.log_softmax(sop_logits.float(), dim=-1)
     return -logp.gather(-1, sop_labels.long()[:, None])[:, 0].mean()
+
+
+def classification_loss(logits, labels, ignore_index: int = -100):
+    """Cross-entropy over any leading shape, masked-mean over labels !=
+    ``ignore_index``: token classification ([B, S, L] logits) and sequence
+    classification ([B, L], all labelled)."""
+    mask = (labels != ignore_index).float()
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
+    loss, acc, _ = _masked_cross_entropy(logits, safe, mask)
+    return loss, {"loss": loss, "accuracy": acc, "n_labels": mask.sum()}
 
 
 def albert_pretraining_loss(mlm_logits, sop_logits, mlm_labels, sop_labels,

@@ -82,6 +82,15 @@ def params_from_jax(named: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_from_checkpoint(named: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The params of a checkpoint tree -> the port's ``state_dict`` (CPU
+    tensors). The tree is either a trainer's ``(params, opt_state)`` pair
+    (params under ``[0]``; the optimizer's leaves are left out) or bare
+    params."""
+    params = {k[3:]: v for k, v in named.items() if k.startswith("[0]")}
+    return params_from_jax(params or named)
+
+
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's parameters (``state_dict`` or ``named_parameters``) ->
     JAX leaf dict keyed by keystr (a copy, not a view of the tensors)."""

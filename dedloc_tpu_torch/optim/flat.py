@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from dedloc_tpu_torch.models.convert import grad_name
-from dedloc_tpu_torch.optim.lamb import trust_ratio_scale
+from dedloc_tpu_torch.optim.lamb import bias_corrections, trust_ratio_scale
 
 
 def spec_spans(
@@ -94,7 +94,7 @@ class FlatLamb:
         self.decay_flags = np.asarray(list(decay_flags), np.float32)
         if len(self.decay_flags) != len(self.spans):
             raise ValueError("one decay flag per spec entry")
-        # the per-leaf chain's scalar rules (lr, bias corrections)
+        # the per-leaf chain's learning-rate rule
         self._chain = Lamb(learning_rate, b1=b1, b2=b2, eps=eps,
                            weight_decay=weight_decay, clamp_value=clamp_value,
                            max_grad_norm=max_grad_norm)
@@ -135,7 +135,7 @@ class FlatLamb:
         mu = flat_mu * b1 + (1 - b1) * g
         nu = flat_nu * b2 + (1 - b2) * g * g
         count = count + 1
-        bc1, bc2 = self._chain.bias_corrections(count)
+        bc1, bc2 = bias_corrections(b1, b2, count)
         adam_step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
         if self.weight_decay > 0.0:
             decay = expand_segments(decay_flags, sizes, self.total)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dedloc_tpu_torch.models.convert import jax_keys
+from dedloc_tpu_torch.utils.device import divide
 
 Params = Mapping[str, torch.Tensor]
 
@@ -55,6 +56,27 @@ def albert_weight_decay_mask(params: Params) -> Dict[str, bool]:
 def _norm(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     return torch.sqrt((x * x).sum())
+
+
+def bias_corrections(b1: float, b2: float, count):
+    """(1 - b1^count, 1 - b2^count) in float32: host floats for an int
+    count, 0-d tensors beside a tensor count."""
+    if isinstance(count, torch.Tensor):
+        c = count.to(torch.float32)
+        p1, p2 = (torch.full_like(c, b) for b in (b1, b2))
+        return 1.0 - torch.pow(p1, c), 1.0 - torch.pow(p2, c)
+    c = np.float32(count)
+    return (float(np.float32(1) - np.float32(b1) ** c),
+            float(np.float32(1) - np.float32(b2) ** c))
+
+
+def debiased(mu: torch.Tensor, nu: torch.Tensor, bc1, bc2):
+    """The bias-corrected moments ``(mu / bc1, nu / bc2)`` as divisions, as
+    optax's debias: host-float corrections (an int count) divide through
+    ``divide``, which keeps them IEEE on CUDA."""
+    if isinstance(bc1, torch.Tensor):
+        return mu / bc1, nu / bc2
+    return divide(mu, bc1), divide(nu, bc2)
 
 
 def trust_ratio_scale(w_norm, u_norm, clamp_value: float):
@@ -97,17 +119,6 @@ class Lamb:
             return lr(count) if callable(lr) else float(np.float32(lr))
         return float(np.float32(lr(count) if callable(lr) else lr))
 
-    def bias_corrections(self, count):
-        """(1 - b1^count, 1 - b2^count) in float32: host floats for an int
-        count, 0-d tensors beside a tensor count."""
-        if isinstance(count, torch.Tensor):
-            c = count.to(torch.float32)
-            b1, b2 = (torch.full_like(c, b) for b in (self.b1, self.b2))
-            return 1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)
-        c = np.float32(count)
-        return (float(np.float32(1) - np.float32(self.b1) ** c),
-                float(np.float32(1) - np.float32(self.b2) ** c))
-
     def _clip(self, grads: Params) -> Dict[str, torch.Tensor]:
         if self.max_grad_norm is None:
             return dict(grads)
@@ -127,14 +138,15 @@ class Lamb:
         b1, b2 = self.b1, self.b2
         grads = self._clip(grads)
         count = state.count + 1
-        bc1, bc2 = self.bias_corrections(count)
+        bc1, bc2 = bias_corrections(b1, b2, count)
         decay = albert_weight_decay_mask(params)
         step_size = -self._lr(state.schedule_count)
         updates, new_mu, new_nu = {}, {}, {}
         for n, g in grads.items():
             mu = new_mu[n] = state.mu[n] * b1 + (1 - b1) * g
             nu = new_nu[n] = state.nu[n] * b2 + (1 - b2) * g * g
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            mu_hat, nu_hat = debiased(mu, nu, bc1, bc2)
+            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
             w = params[n]
             if self.weight_decay > 0.0 and decay[n]:
                 u = u + self.weight_decay * w

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from dedloc_tpu_torch.utils.device import divide
+
 NEG_INF = -1e30
 
 
@@ -85,5 +87,5 @@ def blockwise_attention(
 
 def dense_attention(q, k, v, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reference O(S^2) attention for testing equivalence."""
-    s = _add_bias(_qk(q, k) / math.sqrt(q.shape[-1]), bias)
+    s = _add_bias(divide(_qk(q, k), math.sqrt(q.shape[-1])), bias)
     return _pv(torch.softmax(s, dim=-1), v).to(q.dtype)

@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from dedloc_tpu_torch.utils.device import divide
+
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
@@ -90,6 +92,15 @@ def make_apply_step(tx) -> Callable:
     return apply
 
 
+@torch.no_grad()
+def add_micro_grads(grad_acc: Dict[str, torch.Tensor], grads,
+                    grad_accum_steps: int) -> None:
+    """``grad_acc += g / grad_accum_steps`` per leaf in fp32: the JAX scan's
+    division, which ``divide`` keeps IEEE on CUDA (x / 3 != x * (1 / 3))."""
+    for n, g in grads.items():
+        grad_acc[n].add_(divide(g.float(), grad_accum_steps))
+
+
 def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1) -> Callable:
     """Single-peer fused step: micro-batches, then the optimizer apply.
 
@@ -103,9 +114,7 @@ def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1) -> Cal
         for i in range(grad_accum_steps):
             micro = {k: v[i] for k, v in batch.items()}
             grads, metrics = _grads(loss_fn, state.params, micro, rng)
-            with torch.no_grad():
-                for n, g in grads.items():
-                    grad_acc[n].add_(g.float() / grad_accum_steps)
+            add_micro_grads(grad_acc, grads, grad_accum_steps)
             per_micro.append(metrics)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}

@@ -71,6 +71,13 @@ def build_model(
     return cfg, model.to(dev)
 
 
+def single_device_attention_impl(impl: str) -> str:
+    """Attention impl for single-device roles (evaluate): 'ring' needs the
+    trainer's sequence-parallel mesh, but every impl is exact and shares
+    one param tree, so it degrades to 'dense' outside the trainer."""
+    return "dense" if impl == "ring" else impl
+
+
 def _training(args) -> TrainingArguments:
     return args.training if isinstance(args, CollaborationArguments) else args
 

@@ -7,10 +7,12 @@ fp32 accumulator on the card; at every accumulation boundary hand control to
 the collaborative optimizer (global-step averaging, NaN rollback) and
 publish signed metrics.
 
-It runs on the card unless ``DEDLOC_FORCE_CPU=1`` asks for the CPU. One
-device per peer: ``mesh_*_devices > 1``, MoE, ZeRO and ring attention come
-with the parallel-axes slice, streaming and on-disk data with the data
-slice; each raises ``ValueError`` naming it.
+It runs on the card unless ``DEDLOC_FORCE_CPU=1`` asks for the CPU. The
+batches are the JAX trainer's for the same inputs and peer key: synthetic,
+tokenized shards on disk (``--training.dataset_path``) or a streamed,
+tokenized text mix (``--training.streaming_files``). One device per peer:
+``mesh_*_devices > 1``, MoE, ZeRO and ring attention come with the
+parallel-axes slice and raise ``ValueError`` naming it.
 
     python -m dedloc_tpu_torch.roles.trainer --dht.experiment_prefix run \\
         --optimizer.target_batch_size 48 --training.per_device_batch_size 12
@@ -75,11 +77,6 @@ def _refuse_later_slices(args: CollaborationArguments) -> None:
             "the port's trainer runs on one device: mesh_*_devices, "
             "zero_sharding, moe_experts and attention_impl='ring' come with "
             "the parallel-axes slice (ROADMAP, queue A)")
-    if tr.streaming_files or tr.dataset_path:
-        raise ValueError(
-            "the port's trainer reads synthetic MLM batches only: "
-            "streaming_files and dataset_path come with the data slice "
-            "(ROADMAP, queue A)")
 
 
 def run_trainer(args: CollaborationArguments) -> TrainState:
@@ -363,11 +360,67 @@ def _save(args: CollaborationArguments, state: TrainState, step: int, tx) -> Non
 
 def _make_batches(args: CollaborationArguments, cfg, public_key: bytes,
                   slice_batch: Optional[int] = None):
-    """The synthetic fixture stream, seeded per peer (independent
-    shuffling, as the JAX package's)."""
-    seed = peer_shuffle_seed(public_key)
+    """Synthetic fixture by default; a tokenized-on-disk dataset when
+    ``dataset_path`` is set (tokenize_wikitext103 output layout); a streamed
+    text mix when ``streaming_files`` is. Seeded per peer (independent
+    shuffling); numpy batches, the JAX trainer's for the same inputs."""
+    seed = peer_shuffle_seed(public_key)  # per-peer independent shuffling
     batch_size = slice_batch or args.training.per_device_batch_size
-    return synthetic_mlm_batches(cfg, batch_size, args.training.seq_length, seed)
+    if args.training.streaming_files:
+        # sahajbert-style streaming mode (dataset_streaming.py capability):
+        # weighted lazy mix + per-peer shuffle buffer + on-the-fly tokenize
+        from dedloc_tpu_torch.data.mlm import SpecialTokens
+        from dedloc_tpu_torch.data.streaming import (
+            make_text_source,
+            prefetch,
+            split_sentences,
+            streaming_mlm_batches,
+        )
+        from dedloc_tpu_torch.data.tokenizer import load_fast_tokenizer
+
+        tok = load_fast_tokenizer(args.training.tokenizer_path)
+        if tok.vocab_size > cfg.vocab_size:
+            # fail fast: ids past the embedding table would index out of
+            # range in the embedding lookup
+            raise ValueError(
+                f"tokenizer vocab ({tok.vocab_size}) exceeds the model's "
+                f"vocab_size ({cfg.vocab_size}); retrain the tokenizer or "
+                "use a larger model vocab"
+            )
+        tokens = SpecialTokens(
+            cls_id=tok.cls_id, sep_id=tok.sep_id, pad_id=tok.pad_id,
+            mask_id=tok.mask_id, vocab_size=tok.vocab_size,
+        )
+        weights = args.training.streaming_weights or (
+            [1.0] * len(args.training.streaming_files)
+        )
+        seq = min(args.training.seq_length, cfg.max_position_embeddings)
+        # http(s):// specs stream remotely with retry/resume; the bounded
+        # prefetch overlaps network/tokenization with the training step
+        return prefetch(streaming_mlm_batches(
+            [make_text_source(p) for p in args.training.streaming_files],
+            weights,
+            lambda doc: [
+                tok.encode_ids(s, add_special_tokens=False)
+                for s in split_sentences(doc)
+            ],
+            tokens,
+            batch_size,
+            seq,
+            seed,
+            buffer_size=args.training.streaming_buffer_size,
+            max_predictions=max_predictions_for(seq),
+        ), size=8)
+    if not args.training.dataset_path:
+        return synthetic_mlm_batches(
+            cfg, batch_size, args.training.seq_length, seed
+        )
+    from dedloc_tpu_torch.data.disk import tokenized_dataset_batches
+
+    return tokenized_dataset_batches(
+        args.training.dataset_path, cfg, batch_size,
+        args.training.seq_length, seed,
+    )
 
 
 def main(argv=None) -> None:

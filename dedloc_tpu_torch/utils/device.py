@@ -30,3 +30,12 @@ def on_card(t: torch.Tensor, op: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"{op} has no kernel for device {t.device}")
+
+
+def divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as an IEEE division on every device. On CUDA, PyTorch
+    applies a Python-number divisor as a multiply by its reciprocal; a 0-d
+    tensor on the same device keeps it a division, bit-identical to the
+    host path and to the JAX package (x / 3 != x * (1 / 3) in fp32). The
+    divisor is filled on the device, so nothing waits for the stream."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)

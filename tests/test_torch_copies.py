@@ -28,8 +28,10 @@ COPIES = (
                                      "links", "registry", "watch")]
     + ["testing/__init__.py", "testing/faults.py"]
     + [f"utils/{n}.py" for n in ("aio", "logging", "stats", "checkpoint")]
-    + ["data/__init__.py", "data/mlm.py", "data/streaming.py",
-       "native/__init__.py", "serving/records.py", "join.py"]
+    + [f"data/{n}.py" for n in ("__init__", "mlm", "streaming", "tokenizer",
+                                "corpus", "prepare", "disk")]
+    + ["finetune/metrics.py", "native/__init__.py", "serving/records.py",
+       "join.py"]
 )
 # copies that extend their source: the source comes first, unchanged
 EXTENDED = {"averaging/__init__.py": ("DeviceFlatPipeline", "FlatFetch",

@@ -200,6 +200,9 @@ def test_late_torch_peer_loads_the_jax_peers_state_bitwise(jax_init):
     jdht = JaxDHT(start=True, listen_host="127.0.0.1")
     jopt = JaxOptimizer(tx, jdht, "late", target_batch_size=B,
                         metadata_expiration=0.2, **OPT_KW)
+    # share every step's snapshot: the duty cycle skips one that follows
+    # the previous backup too closely, which a loaded host makes likely
+    jopt.backup_duty_cycle = 1.0
     tdht = topt = None
     try:
         time.sleep(0.3)  # past the cold-start grace: the JAX peer steps solo
@@ -219,6 +222,7 @@ def test_late_torch_peer_loads_the_jax_peers_state_bitwise(jax_init):
             while not stepped and time.time() < deadline:
                 state, g, n, stepped = jopt.step(state, g, n, B)
                 time.sleep(0.02)
+            jopt._join_backup()  # a step's snapshot drains before the next
         assert jopt.local_step == 2
         jopt._join_backup()  # the post-apply snapshot is being served
         shared = _tree_to_named(jax.device_get((state.params, state.opt_state)))

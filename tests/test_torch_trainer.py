@@ -80,8 +80,8 @@ def test_trainer_without_cuda_raises_unless_the_cpu_is_asked_for(tmp_path, monke
 @pytest.mark.parametrize("flags,match", [
     (["--training.mesh_devices", "2"], "one device"),
     (["--training.zero_sharding", "true"], "one device"),
-    (["--training.streaming_files", "a.txt"], "synthetic"),
-    (["--training.dataset_path", "data"], "synthetic"),
+    (["--training.moe_experts", "2"], "one device"),
+    (["--training.attention_impl", "ring"], "one device"),
 ])
 def test_options_of_later_slices_are_refused(tmp_path, monkeypatch, flags, match):
     monkeypatch.setenv("DEDLOC_FORCE_CPU", "1")

@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
               call (CUDA-graph replays between CUDA events, median) of the
               kernel, the plain version and, where one exists, the one
               PyTorch call computing the same function (timed only, never
-              used by the port).
+              used by the port; for add+LN the nearest calls: the fp32 add
+              then native_layer_norm, and native_layer_norm_backward).
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
 5. path       first the divisions the reference makes, card against CPU
@@ -95,10 +96,31 @@ Phases (any failure exits non-zero):
               evaluating to their epoch's loss, no port kernel launched; ms
               per step and peak memory. Both heads on a tiny config, card
               against CPU.
+9. swav       the SwAV peer, which launches none of the port's kernels
+              (their counters must stay 0): the tiny config (bf16 trunk)
+              card against CPU (embeddings, loss, gradients) and a
+              [32 + 3840, 3000] fp32 sinkhorn card against CPU; the
+              full-width fused local step (ResNet-50, head 2048 -> 2048 ->
+              128, 3,000 prototypes, queue 3,840; 32 images = 64 x 224^2 +
+              192 x 96^2 crops; LARS on a warmup-cosine schedule), 3 steps
+              with the queue off and 2 with it on: finite losses, unit
+              prototypes after each apply, one batch norm's running
+              variance against the biased estimate of its input; one
+              traced step; the flat LARS apply (with the prototype
+              post_apply) against the per-leaf one over 3 steps; one step
+              at bench.py's B=128 if it fits. Then a solo peer through
+              ``python -m dedloc_tpu_torch.roles.swav`` at full width (4
+              boundaries of 32 images, target batch 64, queue from global
+              step 1): the queue engaged, every global step through the
+              flat apply, a checkpoint, per-boundary phases from its
+              telemetry events; and ``run_linear_probe`` on the eval-mode
+              trunk's features from that checkpoint (a check, not a
+              result).
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
-line, a ``{"downstream": ...}`` line, the nvidia-smi line, and last
+line, a ``{"downstream": ...}`` line, a ``{"swav": ...}`` line, the whole
+script's seconds (``{"script_s": ...}``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -609,12 +631,23 @@ def phase_kernels(seed: int) -> list:
                 fl.ln_bwd_plain(xhs, rss, gamma[:1000], dys)[0], 1e-2, 1e-2)
     row = n * w * 2
     common = dict(route="triton", source=LN_SRC, path="S=512", shape=[n, w],
-                  plain_timing="CUDA graph", library_ms=None, library=None)
+                  plain_timing="CUDA graph")
+    # the nearest PyTorch calls, timed only: the fp32 residual add then
+    # native_layer_norm (forward: the cast, the add and the LN, 3 kernels);
+    # native_layer_norm_backward from the fp32 sum and its saved statistics
+    # (one call: dx, dgamma, dbeta)
+    a = x.float().add_(r)
+    _, mean_l, rstd_l = torch.native_layer_norm(a, [w], gamma, beta, eps)
+    dy32 = dy.float()
     results.append(dict(
         name="ln_fwd", replaces="dedloc_tpu/ops/fused_ln.py:55",
         err=(fwd_err, None), tol="atol 1e-2 + rtol 1e-2 |ref|",
         ms=cuda_ms(lambda: fl.ln_fwd(x, r, gamma, beta, eps)),
         plain_ms=cuda_ms(lambda: fl.ln_fwd_plain(x, r, gamma, beta, eps)),
+        library_ms=cuda_ms(lambda: torch.native_layer_norm(
+            x.float().add_(r), [w], gamma, beta, eps)),
+        library="x.float().add_(r) then torch.native_layer_norm "
+                "(3 kernels: cast, add, LN; no x-hat output)",
         **bound(4 * row + 2 * w * 4 + n * 4,
                 fp32=10 * n * w / FP32_FLOPS * 1e3),
         **common,
@@ -625,6 +658,10 @@ def phase_kernels(seed: int) -> list:
         tol="atol 1e-2 + rtol 1e-2 |ref| (dgamma, dbeta rtol 1e-4)",
         ms=cuda_ms(lambda: fl.ln_bwd(xhat, rstd, gamma, dy)),
         plain_ms=cuda_ms(lambda: fl.ln_bwd_plain(xhat, rstd, gamma, dy)),
+        library_ms=cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy32, a, [w], mean_l, rstd_l, gamma, beta, [True, True, True])),
+        library="torch.ops.aten.native_layer_norm_backward (fp32 dy and "
+                "input: one call)",
         **bound(3 * row + n * 4 + 3 * w * 4,
                 fp32=12 * n * w / FP32_FLOPS * 1e3),
         **common,
@@ -1720,6 +1757,353 @@ def phase_downstream(seed: int) -> dict:
                 heads=heads, phase_s=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------- phase 9
+
+SWAV_BATCH = 32  # images per micro-batch: 64 x 224^2 + 192 x 96^2 crops
+SWAV_QUEUE = 3840  # bench.py's queue_length
+SWAV_BENCH_BATCH = 128  # bench.py's B
+SWAV_LOCAL_STEPS = (3, 2)  # fused local steps with the queue off, then on
+SWAV_CLI_BOUNDARIES = 4
+# card vs CPU, tiny bf16 config (tests/test_torch_swav.py's bf16 bounds):
+# features 2e-2 relative of max |ref|, loss 1e-2 relative, the whole
+# gradient within 0.2 relative error and cosine >= 0.98
+SWAV_FEAT_RTOL, SWAV_LOSS_RTOL = 2e-2, 1e-2
+SWAV_GRAD_REL, SWAV_GRAD_COS = 0.2, 0.98
+SWAV_SINKHORN_ATOL = 1e-5
+SWAV_FLAT_RTOL = 1e-6  # flat LARS vs per-leaf, of each leaf's max |ref|
+
+
+def _port_launches() -> dict:
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+
+    return {w.__name__: w.launches for w in fa.WRAPPERS + fl.WRAPPERS}
+
+
+def swav_tiny_card_vs_cpu(seed: int) -> dict:
+    """The tiny SwAV (bf16 trunk) from the same weights and crops on the
+    card and on the CPU: embeddings, loss and gradients; then a full-width
+    sinkhorn on [32 + 3840, 3000] fp32 scores."""
+    import copy
+
+    from dedloc_tpu_torch.data.multicrop import MultiCropSpec, synthetic_multicrop_batches
+    from dedloc_tpu_torch.models.resnet import init_batch_stats, init_weights
+    from dedloc_tpu_torch.models.swav import (
+        SwAVConfig, SwAVModel, crop_tensors, sinkhorn_knopp, swav_loss,
+    )
+
+    log("[swav] tiny SwAV (bf16 trunk): card vs CPU")
+    cfg = SwAVConfig.tiny()
+    cpu_model = init_weights(SwAVModel(cfg), torch.Generator().manual_seed(seed))
+    crops = next(synthetic_multicrop_batches(MultiCropSpec.tiny(), 8, seed=seed))
+    out = {}
+    for device, model in (("cuda", copy.deepcopy(cpu_model).cuda()), ("cpu", cpu_model)):
+        params = dict(model.named_parameters())
+        emb, scores, _ = model(crop_tensors(crops, device), init_batch_stats(model), True)
+        loss = swav_loss(scores, cfg)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[device] = (emb.detach().float().cpu(), float(loss.detach()),
+                       torch.cat([g.float().cpu().reshape(-1) for g in grads]))
+    (emb_c, loss_c, g_c), (emb_p, loss_p, g_p) = out["cuda"], out["cpu"]
+    feat_err = check_close("swav tiny embeddings", emb_c, emb_p,
+                           SWAV_FEAT_RTOL * float(emb_p.abs().max()), SWAV_FEAT_RTOL)
+    if not math.isfinite(loss_c) or abs(loss_c - loss_p) > SWAV_LOSS_RTOL * abs(loss_p):
+        fail(f"swav tiny loss card {loss_c} vs cpu {loss_p}")
+    grad_rel = float((g_c - g_p).norm() / g_p.norm())
+    grad_cos = float(g_c @ g_p / (g_c.norm() * g_p.norm()))
+    if not (grad_rel < SWAV_GRAD_REL and grad_cos > SWAV_GRAD_COS):
+        fail(f"swav tiny gradients: relative error {grad_rel:.3e}, cosine {grad_cos:.5f}")
+    log(f"  loss card {loss_c:.6f} cpu {loss_p:.6f}; gradient relative error "
+        f"{grad_rel:.3e}, cosine {grad_cos:.5f}")
+    # full-width sinkhorn: unit embeddings against unit prototypes
+    gen = torch.Generator().manual_seed(seed)
+    emb = torch.nn.functional.normalize(torch.randn(32 + SWAV_QUEUE, 128, generator=gen), dim=1)
+    protos = torch.nn.functional.normalize(torch.randn(3000, 128, generator=gen), dim=1)
+    scores = emb @ protos.t()
+    scores_d = scores.cuda()
+    sk_c = sinkhorn_knopp(scores_d)
+    sk_p = sinkhorn_knopp(scores)
+    sk_err = check_close("sinkhorn [3872, 3000]", sk_c.cpu(), sk_p, SWAV_SINKHORN_ATOL, 0.0)
+    sk_ms = cuda_ms(lambda: sinkhorn_knopp(scores_d), reps=10, calls=3)
+    return dict(loss_card=loss_c, loss_cpu=loss_p, embeddings_max_abs_err=feat_err,
+                grad_rel_err=grad_rel, grad_cos=grad_cos, sinkhorn_max_abs_err=sk_err,
+                sinkhorn_ms=sk_ms)
+
+
+def _swav_state(cfg, seed: int, tx):
+    from dedloc_tpu_torch.models.resnet import init_batch_stats
+    from dedloc_tpu_torch.models.swav import SwAVQueue, SwAVTrainState, init_swav
+
+    model, params, stats = init_swav(cfg, seed, "cuda")
+    queue = SwAVQueue.create(cfg, torch.Generator().manual_seed(seed + 1), "cuda")
+    return model, SwAVTrainState(step=0, params=params, batch_stats=stats,
+                                 opt_state=tx.init(params), queue=queue)
+
+
+def _swav_crops(batch: int, seed: int) -> list:
+    from dedloc_tpu_torch.data.multicrop import MultiCropSpec, synthetic_multicrop_batches
+    from dedloc_tpu_torch.models.swav import crop_tensors
+
+    return crop_tensors(next(synthetic_multicrop_batches(MultiCropSpec(), batch, seed=seed)),
+                        "cuda")
+
+
+def swav_local(seed: int) -> dict:
+    """Full width (ResNet-50, head 2048 -> 2048 -> 128, 3,000 prototypes,
+    queue 3,840), 32 images a step, LARS on a warmup-cosine schedule: the
+    fused local step, its checks, a traced step, and one step at B=128."""
+    from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
+    from dedloc_tpu_torch.models.swav import (
+        SwAVConfig, make_prototype_post_apply, make_swav_accumulate_step,
+        make_swav_train_step,
+    )
+    from dedloc_tpu_torch.optim.flat import FlatLars
+    from dedloc_tpu_torch.optim.lars import Lars
+    from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState, make_flat_apply_step, make_guarded_apply_step, zeros_like_grads,
+    )
+
+    cfg = SwAVConfig(queue_length=SWAV_QUEUE)
+    schedule = linear_warmup_cosine_annealing(0.6, 2, 100)
+    tx = Lars(schedule, momentum=0.9, weight_decay=1e-6)
+    model, state = _swav_state(cfg, seed, tx)
+    n_params = sum(p.numel() for p in state.params.values())
+    crops = _swav_crops(SWAV_BATCH, seed)
+    log(f"[swav] ResNet-50 SwAV, {n_params:,} params, crops "
+        f"{[tuple(c.shape) for c in crops]}, queue {SWAV_QUEUE}")
+    step = make_swav_train_step(model, cfg, tx)
+    # one BN layer's input, for its running variance
+    bn = model.head.proj_bn0
+    seen = {}
+
+    def keep_input(_module, args):
+        seen.setdefault("x", args[0].detach().double())
+
+    hook = bn.register_forward_pre_hook(keep_input)
+    var_before = state.batch_stats["head.proj_bn0.var"].double().clone()
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, use_queue in enumerate([False] * SWAV_LOCAL_STEPS[0] + [True] * SWAV_LOCAL_STEPS[1]):
+        t0 = time.perf_counter()
+        state, metrics = step(state, crops, use_queue)
+        loss = float(metrics["loss"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            fail(f"swav local step {i}: loss {loss}")
+        norms = state.params["head.prototypes0.weight"].detach().double().norm(dim=1)
+        if float((norms - 1).abs().max()) > 1e-6:
+            fail(f"swav local step {i}: prototype norms off by "
+                 f"{float((norms - 1).abs().max()):.3e}")
+        if i == 0:
+            hook.remove()
+            x = seen["x"]
+            want = 0.9 * var_before + 0.1 * x.var(dim=0, unbiased=False)
+            got = state.batch_stats["head.proj_bn0.var"].double()
+            var_err = float(((got - want).abs() / want.abs()).max())
+            unbiased_gap = x.shape[0] / (x.shape[0] - 1) - 1
+            if var_err > 1e-5:
+                fail(f"swav BN running var {var_err:.3e} from the biased estimate")
+            log(f"  BN running var vs biased estimate: {var_err:.3e} relative "
+                f"(the unbiased one would be {unbiased_gap:.2e} off over {x.shape[0]} rows)")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  local steps: losses {losses}, ms {[round(t, 2) for t in step_ms]}, "
+        f"peak {peak:,} bytes")
+    timed = step_ms[1:]  # the first pays cuDNN's set-up
+    med_ms = statistics.median(timed)
+    trace = profile_step(lambda: float(step(state, crops, True)[1]["loss"]),
+                         "swav_step_trace.json")
+
+    # flat LARS (with the prototype post_apply) vs per-leaf over 3 steps,
+    # on one micro-batch's real gradients
+    acc = make_swav_accumulate_step(model, cfg)
+    grads = zeros_like_grads(state.params)
+    grads, _n, _bs, _q, _m = acc(state.params, state.batch_stats, state.queue,
+                                 grads, 0, crops, 0, True)
+    spec = DeviceFlatPipeline.for_tree(grads).spec
+    copies = lambda: TrainState.create(
+        {n: p.detach().clone() for n, p in state.params.items()}, tx)
+    flat_state, leaf_state = copies(), copies()
+    post = make_prototype_post_apply()
+    flat = make_flat_apply_step(
+        FlatLars(spec, [False] * len(spec), schedule, momentum=0.9, weight_decay=1e-6),
+        spec, post_apply=post, from_tree=True)
+    leaf = make_guarded_apply_step(tx, post_apply=post)
+    flat_worst = 0.0
+    for _ in range(3):
+        flat_state, ok1 = flat(flat_state, grads)
+        leaf_state, ok2 = leaf(leaf_state, grads)
+        if not (bool(ok1) and bool(ok2)):
+            fail("swav flat/per-leaf apply rejected a finite update")
+        for n, ref in leaf_state.params.items():
+            err = float((flat_state.params[n] - ref).abs().max() / ref.abs().max())
+            flat_worst = max(flat_worst, err)
+    if flat_worst > SWAV_FLAT_RTOL:
+        fail(f"swav flat LARS {flat_worst:.3e} from the per-leaf apply")
+    log(f"  flat LARS vs per-leaf, 3 steps: {flat_worst:.3e} relative (tol {SWAV_FLAT_RTOL})")
+    flat_ms = event_ms(lambda: flat(flat_state, grads))
+    leaf_ms = event_ms(lambda: leaf(leaf_state, grads))
+    del flat_state, leaf_state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bench.py's B=128, if it fits
+    big = dict(batch=SWAV_BENCH_BATCH)
+    try:
+        crops_big = _swav_crops(SWAV_BENCH_BATCH, seed + 1)
+        torch.cuda.reset_peak_memory_stats()
+        float(step(state, crops_big, True)[1]["loss"])
+        t0 = time.perf_counter()
+        loss_big = float(step(state, crops_big, True)[1]["loss"])
+        big.update(step_ms=(time.perf_counter() - t0) * 1e3, loss=loss_big,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        big["images_per_s"] = SWAV_BENCH_BATCH / big["step_ms"] * 1e3
+        log(f"  B={SWAV_BENCH_BATCH}: {json.dumps(big)}")
+    except torch.cuda.OutOfMemoryError as e:
+        big.update(fits=False, error=str(e).splitlines()[0])
+        log(f"  B={SWAV_BENCH_BATCH} does not fit on this card: {big['error']}")
+    crops_big = None
+    return dict(params=n_params, batch=SWAV_BATCH, crops=[list(c.shape) for c in crops],
+                losses=losses, step_ms=step_ms, median_step_ms=med_ms,
+                images_per_s=SWAV_BATCH / med_ms * 1e3, peak_bytes=peak,
+                bn_running_var_rel_err=var_err, flat_vs_leaf_rel=flat_worst,
+                flat_apply_ms=flat_ms, leaf_apply_ms=leaf_ms, trace=trace,
+                bench_batch=big)
+
+
+def swav_cli(seed: int, work: str) -> dict:
+    """A solo SwAV peer through ``python -m dedloc_tpu_torch.roles.swav`` at
+    full width: 4 boundaries of 32 images, target batch 64 (2 of 4
+    boundaries step), queue 3,840 engaged from global step 1."""
+    out_dir = os.path.join(work, "swav")
+    events_path = os.path.join(work, "swav_events.jsonl")
+    cmd = [sys.executable, "-m", "dedloc_tpu_torch.roles.swav",
+           "--dht.experiment_prefix", "chip-smoke-swav",
+           "--dht.listen_host", "127.0.0.1",
+           "--dht.listen_port", str(_free_port()),
+           "--training.per_device_batch_size", str(SWAV_BATCH),
+           "--training.max_local_steps", str(SWAV_CLI_BOUNDARIES),
+           "--training.queue_length", str(SWAV_QUEUE),
+           "--training.queue_start_step", "1",
+           "--training.seed", str(seed),
+           "--training.save_steps", "2", "--training.save_total_limit", "1",
+           "--training.output_dir", out_dir,
+           "--training.log_every", "1",
+           "--optimizer.target_batch_size", str(2 * SWAV_BATCH),
+           "--checkpoint.cache_dir", "none",
+           "--telemetry.enabled", "true",
+           "--telemetry.event_log_path", events_path,
+           # a solo peer finds no partner: do not wait 5 s for one
+           "--averager.averaging_expiration", "0.5",
+           "--averager.min_refresh_period", "0.2",
+           "--averager.default_refresh_period", "0.5",
+           # a lone peer takes the networked path (the flat apply) until its
+           # progress record's lifetime has passed, then applies per leaf
+           # with no round: keep the run inside that window
+           "--averager.metadata_expiration", "300"]
+    log(f"[swav] CLI peer: {' '.join(cmd[3:])}")
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "swav.log"), "w") as logf:
+        proc = subprocess.run(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=420)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(work, "swav.log")) as f:
+        text = f.read()
+    if proc.returncode:
+        fail(f"swav: the peer exited {proc.returncode}:\n{text[-3000:]}")
+    for marker in FALLBACKS:
+        if marker in text:
+            fail(f"swav: the peer fell back: {marker!r}")
+    if "queue engaged" not in text:
+        fail(f"swav: the queue never engaged:\n{text[-3000:]}")
+    applied = re.findall(r"global step (\d+): loss ([-\d.naif]+) \(apply (\w+), group (\d+)\)",
+                         text)
+    # the target is 2 boundaries' samples: the 2nd and 4th boundary step
+    # when the progress tracker's view keeps up, one boundary later when a
+    # boundary is shorter than its refresh period (then 1 of 4)
+    if not 1 <= len(applied) <= SWAV_CLI_BOUNDARIES // 2 or any(
+            a[2] != "flat" for a in applied):
+        fail(f"swav: global steps {applied} (want 1-{SWAV_CLI_BOUNDARIES // 2}, "
+             f"all through the flat apply):\n{text[-3000:]}")
+    losses = [float(a[1]) for a in applied]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"swav: non-finite peer loss {losses}")
+    ckpts = sorted(d for d in os.listdir(out_dir) if d.startswith("checkpoint-"))
+    if not ckpts:
+        fail("swav: the peer saved no checkpoint")
+    steps = [e for e in _jsonl(events_path) if e.get("event") == "step.record"]
+    if len(steps) != SWAV_CLI_BOUNDARIES:
+        fail(f"swav: {len(steps)} step records for {SWAV_CLI_BOUNDARIES} boundaries")
+    out = dict(wall_s=wall_s, global_steps=[int(a[0]) for a in applied], losses=losses,
+               boundary_ms=[e["dur_s"] * 1e3 for e in steps],
+               phases_ms=[{k: v * 1e3 for k, v in e.get("phases", {}).items()}
+                          for e in steps],
+               checkpoint=os.path.join(out_dir, ckpts[-1]), output_dir=out_dir)
+    log(f"  peer: {json.dumps(out)}")
+    return out
+
+
+def swav_probe(seed: int, ckpt_dir: str) -> dict:
+    """``run_linear_probe`` on the eval-mode trunk's features of labelled
+    synthetic images, from the peer's checkpoint (a check, not a result)."""
+    import numpy as np
+
+    from dedloc_tpu_torch.data.multicrop import synthetic_labeled_images
+    from dedloc_tpu_torch.finetune import LinearProbeArguments, extract_features, run_linear_probe
+    from dedloc_tpu_torch.finetune.linear_probe import swav_trunk_apply
+    from dedloc_tpu_torch.models.swav import SwAVConfig, init_swav
+    from dedloc_tpu_torch.roles.swav import restore_checkpoint
+    from dedloc_tpu_torch.utils.checkpoint import load_latest_checkpoint
+
+    model, params, stats = init_swav(SwAVConfig(), seed + 7, "cuda")
+    step, tree, _meta = load_latest_checkpoint(ckpt_dir)
+    stats = restore_checkpoint(tree, params, stats)
+    images, labels = synthetic_labeled_images(320, size=96, num_classes=8, seed=seed)
+    t0 = time.perf_counter()
+    feats = extract_features(swav_trunk_apply(model, params, stats), images,
+                             batch_size=64, device="cuda")
+    extract_s = time.perf_counter() - t0
+    if not np.isfinite(feats).all() or feats.shape != (320, 2048):
+        fail(f"swav probe: features {feats.shape}, finite {np.isfinite(feats).all()}")
+    result = run_linear_probe(feats[:256], labels[:256], feats[256:], labels[256:], 8,
+                              LinearProbeArguments(num_epochs=10, batch_size=64,
+                                                   learning_rate=0.1), device="cuda")
+    log(f"  probe from checkpoint step {step}: {result} (extract {extract_s:.2f} s)")
+    return dict(checkpoint_step=step, extract_s=extract_s, **result)
+
+
+def phase_swav(seed: int) -> dict:
+    """The SwAV peer on the card: tiny card vs CPU, the full-width local
+    step, the CLI peer and the linear probe. It launches none of the
+    port's kernels."""
+    from dedloc_tpu_torch.ops import _build
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+
+    t0 = time.perf_counter()
+    for w in fa.WRAPPERS + fl.WRAPPERS:
+        w.launches = 0
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="swav-", dir=_build.BUILD_DIR)
+    try:
+        tiny = swav_tiny_card_vs_cpu(seed)
+        local = swav_local(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = swav_cli(seed, work)
+        probe = swav_probe(seed, cli["output_dir"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = _port_launches()
+    if any(launches.values()):
+        fail(f"swav: the phase launched port kernels {launches}")
+    return dict(tiny=tiny, local=local, cli=cli, probe=probe, launches=launches,
+                phase_s=time.perf_counter() - t0)
+
+
 def _kind(name: str) -> str:
     if "flash_" in name or "_ln_" in name:
         return "port kernels"
@@ -1778,6 +2162,8 @@ def main(argv=None) -> int:
         return 1
     import dedloc_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    script_t0 = time.perf_counter()
+
     smi = phase_device()
     build_s, build_regs = phase_build()
     kernels = phase_kernels(args.seed)
@@ -1786,6 +2172,7 @@ def main(argv=None) -> int:
     longctx = phase_longctx(args.seed)
     collab = phase_collab(args.seed)
     downstream = phase_downstream(args.seed)
+    swav = phase_swav(args.seed)
 
     rows = []
     for k in kernels:
@@ -1824,6 +2211,8 @@ def main(argv=None) -> int:
     print(json.dumps({"longctx": longctx}))
     print(json.dumps({"collab": collab}))
     print(json.dumps({"downstream": downstream}))
+    print(json.dumps({"swav": swav}))
+    print(json.dumps({"script_s": time.perf_counter() - script_t0}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

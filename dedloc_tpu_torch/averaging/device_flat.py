@@ -5,7 +5,7 @@ Port of ``dedloc_tpu/averaging/device_flat.py``. At a global-batch boundary
 the fp32 gradient accumulator leaves the card as ONE flat buffer in the
 averaging wire's layout (the JAX wire names sorted, each leaf in the JAX
 element order: a ``Linear`` weight ``[out, in]`` goes as its ``[in, out]``
-transpose). Everything before the copy runs on the card in plain PyTorch:
+transpose, a ``Conv2d`` weight OIHW as HWIO). Everything before the copy runs on the card in plain PyTorch:
 
 - **flatten** in spec order, then the ``grad_acc / n`` mean as a DIVISION
   (not a reciprocal multiply, so it matches the host path bit for bit);
@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from dedloc_tpu_torch.averaging.partition import FlatTree, TreeLayout
-from dedloc_tpu_torch.models.convert import grad_name
+from dedloc_tpu_torch.models.convert import grad_name, to_jax_layout
 from dedloc_tpu_torch.telemetry import registry as telemetry
 from dedloc_tpu_torch.telemetry.registry import monotonic_clock
 from dedloc_tpu_torch.utils.device import divide
@@ -64,8 +64,8 @@ def named_device_leaves(tree: Mapping[str, torch.Tensor]) -> List[Tuple[str, tor
     ``spec_fingerprint``) matches a JAX peer's."""
     out = []
     for name, leaf in tree.items():
-        jname, transpose = grad_name(name, leaf.ndim)
-        out.append((jname, leaf.t() if transpose else leaf))
+        jname, perm = grad_name(name, leaf.ndim)
+        out.append((jname, to_jax_layout(leaf, perm)))
     return out
 
 

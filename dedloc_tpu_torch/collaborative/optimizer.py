@@ -50,8 +50,7 @@ from dedloc_tpu_torch.dht.dht import DHT
 from dedloc_tpu_torch.telemetry import registry as telemetry
 from dedloc_tpu_torch.telemetry import steps
 from dedloc_tpu_torch.telemetry.registry import monotonic_clock
-from dedloc_tpu_torch.models.convert import grad_name, state_from_jax, state_views
-from dedloc_tpu_torch.optim.lamb import Lamb
+from dedloc_tpu_torch.models.convert import from_jax_layout, grad_name, to_jax_layout
 from dedloc_tpu_torch.parallel.train_step import (
     TrainState,
     make_flat_apply_step,
@@ -69,8 +68,8 @@ def _grads_to_named(grads: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Gradients -> {JAX wire name: host array in the JAX element order}."""
     out = {}
     for name, g in grads.items():
-        jname, transpose = grad_name(name, g.ndim)
-        out[jname] = (g.t() if transpose else g).contiguous().cpu().numpy()
+        jname, perm = grad_name(name, g.ndim)
+        out[jname] = to_jax_layout(g, perm).contiguous().cpu().numpy()
     return out
 
 
@@ -81,9 +80,9 @@ def _named_to_grads(named: Dict[str, np.ndarray],
     not match."""
     out = {}
     for name, p in like.items():
-        jname, transpose = grad_name(name, p.ndim)
+        jname, perm = grad_name(name, p.ndim)
         arr = np.asarray(named[jname], dtype=np.float32)
-        t = torch.from_numpy(arr.T if transpose else arr)
+        t = torch.from_numpy(from_jax_layout(arr, perm))
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{jname}: shape {tuple(arr.shape)} does not "
                              f"match the local {tuple(p.shape)}")
@@ -91,12 +90,11 @@ def _named_to_grads(named: Dict[str, np.ndarray],
     return out
 
 
-def _state_views(state: TrainState, tx: Lamb) -> Dict[str, torch.Tensor]:
-    """(params, opt_state) under the JAX trainer's shared-state names, as
-    views in the JAX element order (``models.convert.state_views``)."""
-    return state_views(state.params, state.opt_state,
-                       clip=tx.max_grad_norm is not None,
-                       schedule=tx.has_schedule)
+def _state_views(state: TrainState, tx) -> Dict[str, torch.Tensor]:
+    """(params, opt_state) under the JAX peer's shared-state names, as views
+    in the JAX element order: the optimizer (``Lamb`` or ``Lars``) names
+    its own state (``state_views``)."""
+    return tx.state_views(state.params, state.opt_state)
 
 
 def _fused_mean_clip(grad_acc: Dict[str, torch.Tensor], n, cap: float):
@@ -114,21 +112,23 @@ def _fused_mean_clip(grad_acc: Dict[str, torch.Tensor], n, cap: float):
 
 
 def adopt_state(state: TrainState, named: Dict[str, np.ndarray], step: int,
-                tx: Lamb) -> TrainState:
+                tx) -> TrainState:
     """Copy a shared state (JAX names, from a JAX or a torch peer, or a
     checkpoint) into ``state``'s tensors in place; ``step`` is the train
-    state's step. Every name and shape is checked before anything is
-    written: a mismatch raises ``KeyError``/``ValueError`` and leaves
-    ``state`` as it was."""
+    state's step. The optimizer's state is a NamedTuple of tensor dicts
+    (moments, momentum) and counts; ``tx.state_from_named`` reads it.
+    Every name and shape is checked before anything is written: a mismatch
+    raises ``KeyError``/``ValueError`` and leaves ``state`` as it was."""
     expected = _state_views(state, tx)
     if set(named) != set(expected):
         diff = sorted(set(named) ^ set(expected))
         raise KeyError(f"state names differ: {diff[:4]}")
-    params, lamb = state_from_jax(named)
+    params, remote_opt = tx.state_from_named(named)
     opt = state.opt_state
+    tensor_fields = [f for f in opt._fields if isinstance(getattr(opt, f), dict)]
     pairs = []
-    for local, remote in ((state.params, params), (opt.mu, lamb.mu),
-                          (opt.nu, lamb.nu)):
+    for local, remote in [(state.params, params)] + [
+            (getattr(opt, f), getattr(remote_opt, f)) for f in tensor_fields]:
         for name, t in local.items():
             if tuple(remote[name].shape) != tuple(t.shape):
                 raise ValueError(
@@ -145,17 +145,16 @@ def adopt_state(state: TrainState, named: Dict[str, np.ndarray], step: int,
     return TrainState(
         step=as_count(step, state.step),
         params=state.params,
-        opt_state=opt._replace(
-            count=as_count(lamb.count, opt.count),
-            schedule_count=as_count(lamb.schedule_count,
-                                    opt.schedule_count)),
+        opt_state=opt._replace(**{
+            f: as_count(getattr(remote_opt, f), getattr(opt, f))
+            for f in opt._fields if f not in tensor_fields}),
     )
 
 
 class CollaborativeOptimizer:
     def __init__(
         self,
-        tx: Lamb,
+        tx,  # optim.lamb.Lamb or optim.lars.Lars
         dht: DHT,
         prefix: str,
         target_batch_size: int = 4096,
@@ -255,7 +254,7 @@ class CollaborativeOptimizer:
         # back to the legacy per-leaf host path automatically when the
         # gradient tree is refused (non-float leaves).
         flat_opt_factory: Optional[Callable] = None,  # (spec, params) ->
-        # optim.flat.FlatLamb: enables the FLAT apply — the averaged result
+        # optim.flat.FlatLamb or FlatLars: enables the FLAT apply — the averaged result
         # goes to the card as ONE buffer and the whole optimizer update runs
         # as segment reductions over it (make_flat_apply_step). None keeps
         # the per-leaf guarded apply.
@@ -369,8 +368,8 @@ class CollaborativeOptimizer:
         self.param_sharding = param_sharding
         # post-update transform on the new state (e.g. SwAV prototype
         # re-normalization — NormalizePrototypesHook.on_update capability,
-        # swav_hooks.py:55-92); the port's apply steps take it with the
-        # SwAV slice and raise on it until then
+        # swav_hooks.py:55-92), applied to the new params before the
+        # all-finite check of either apply
         self.post_apply = post_apply
         # guarded apply: optimizer update + all-finite reduce +
         # torch.where rollback — no pre-apply copy of (step, params,

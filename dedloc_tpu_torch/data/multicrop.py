@@ -1,0 +1,297 @@
+"""Multicrop pipeline: SSL augmentations + crop-group batching + fixtures.
+
+Capability parity with the reference's SwAV data path: ``ImgPilToMultiCrop``
+generates 2 global 224² + 6 local 96² views per image via RandomResizedCrop
+(swav/vissl/vissl/data/ssl_transforms/img_pil_to_multicrop.py:11-74), the
+SimCLR augmentation stack — RandomHorizontalFlip, ImgPilColorDistortion
+(strength 1.0: jitter 0.8/0.8/0.8/0.2 applied with p=0.8 + grayscale p=0.2,
+img_pil_color_distortion.py:11-54), ImgPilGaussianBlur (p=0.5, radius
+U(0.1, 2.0), img_pil_gaussian_blur.py:12-41) and ImageNet normalization
+(swav_1node_resnet_submit.yaml:32-49) — the multicrop collator groups
+same-resolution crops so the trunk runs once per resolution
+(data/collators/multicrop_collator.py:7-55 + base_ssl_model.py:76), and
+SyntheticImageDataset provides the test fixture (synthetic_dataset.py:7-53).
+
+Implemented on PIL + numpy (no torchvision): decode, geometric ops and blur
+ride PIL; photometric ops are vectorized numpy. Every sampler draws from a
+caller-owned ``np.random.Generator`` so augmentation streams are exactly
+reproducible per peer seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCropSpec:
+    """2×224 + 6×96 by default (swav_1node_resnet_submit.yaml:32-37)."""
+
+    sizes: Sequence[int] = (224, 96)
+    counts: Sequence[int] = (2, 6)
+    channels: int = 3
+
+    @property
+    def num_crops(self) -> int:
+        return sum(self.counts)
+
+    @staticmethod
+    def tiny(**overrides) -> "MultiCropSpec":
+        base = dict(sizes=(32, 16), counts=(2, 2))
+        base.update(overrides)
+        return MultiCropSpec(**base)
+
+
+def crop_groups(spec: MultiCropSpec, batch_size: int) -> List[Tuple[int, int]]:
+    """(count, size) per resolution group — the static shape contract between
+    the data pipeline and the jitted SwAV step."""
+    return [(c * batch_size, s) for s, c in zip(spec.sizes, spec.counts)]
+
+
+def synthetic_multicrop_batches(
+    spec: MultiCropSpec,
+    batch_size: int,
+    seed: int = 0,
+    num_classes: int = 8,
+) -> Iterator[List[np.ndarray]]:
+    """Synthetic multicrop stream (SyntheticImageDataset capability): each
+    "image" is a class-dependent mean plus noise; crops of one image share
+    its mean, so crops agree like real augmented views do. Yields one
+    [count*B, S, S, C] float32 array per resolution group, in crop order."""
+    rng = np.random.default_rng(seed)
+    while True:
+        means = rng.standard_normal((batch_size, 1, 1, spec.channels)) * 0.5
+        groups: List[np.ndarray] = []
+        for size, count in zip(spec.sizes, spec.counts):
+            views = []
+            for _ in range(count):
+                noise = rng.standard_normal(
+                    (batch_size, size, size, spec.channels)
+                ).astype(np.float32) * 0.1
+                views.append((means + noise).astype(np.float32))
+            groups.append(np.concatenate(views, axis=0))
+        yield groups
+
+
+def _random_resized_crop(
+    img, size: int, scale: Tuple[float, float], rng: np.random.Generator
+):
+    """torchvision RandomResizedCrop semantics: 10 attempts at a random area
+    in ``scale``×orig_area with log-uniform aspect in (3/4, 4/3), then a
+    center-crop fallback; bicubic resize to size×size."""
+    from PIL import Image
+
+    w, h = img.size
+    area = w * h
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        log_ratio = (np.log(3 / 4), np.log(4 / 3))
+        ratio = np.exp(rng.uniform(*log_ratio))
+        cw = int(round(np.sqrt(target_area * ratio)))
+        ch = int(round(np.sqrt(target_area / ratio)))
+        if 0 < cw <= w and 0 < ch <= h:
+            x = int(rng.integers(0, w - cw + 1))
+            y = int(rng.integers(0, h - ch + 1))
+            box = (x, y, x + cw, y + ch)
+            break
+    else:
+        side = min(w, h)  # fallback: center crop
+        x, y = (w - side) // 2, (h - side) // 2
+        box = (x, y, x + side, y + side)
+    return img.resize((size, size), Image.BICUBIC, box=box)
+
+
+def _color_jitter(arr: np.ndarray, strength: float, rng) -> np.ndarray:
+    """SimCLR jitter on a float [0,1] HWC array: brightness/contrast/
+    saturation factors U(1±0.8s) and hue shift U(±0.2s), applied in a random
+    order (torchvision ColorJitter semantics)."""
+    s = 0.8 * strength
+
+    def brightness(a):
+        return a * rng.uniform(max(0.0, 1 - s), 1 + s)
+
+    def contrast(a):
+        m = _grayscale(a).mean()
+        return (a - m) * rng.uniform(max(0.0, 1 - s), 1 + s) + m
+
+    def saturation(a):
+        g = _grayscale(a)[..., None]
+        return (a - g) * rng.uniform(max(0.0, 1 - s), 1 + s) + g
+
+    def hue(a):
+        shift = rng.uniform(-0.2 * strength, 0.2 * strength)
+        hsv = _rgb_to_hsv(a)
+        hsv[..., 0] = (hsv[..., 0] + shift) % 1.0
+        return _hsv_to_rgb(hsv)
+
+    ops = [brightness, contrast, saturation, hue]
+    for i in rng.permutation(4):
+        arr = np.clip(ops[i](arr), 0.0, 1.0)
+    return arr
+
+
+def _grayscale(a: np.ndarray) -> np.ndarray:
+    return a[..., 0] * 0.299 + a[..., 1] * 0.587 + a[..., 2] * 0.114
+
+
+def _rgb_to_hsv(a: np.ndarray) -> np.ndarray:
+    mx, mn = a.max(-1), a.min(-1)
+    diff = mx - mn
+    safe = np.where(diff == 0, 1.0, diff)
+    r, g, b = a[..., 0], a[..., 1], a[..., 2]
+    h = np.where(
+        mx == r, (g - b) / safe % 6, np.where(mx == g, (b - r) / safe + 2, (r - g) / safe + 4)
+    ) / 6.0
+    h = np.where(diff == 0, 0.0, h)
+    s = np.where(mx == 0, 0.0, diff / np.where(mx == 0, 1.0, mx))
+    return np.stack([h, s, mx], axis=-1)
+
+
+def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    h, s, v = hsv[..., 0] * 6.0, hsv[..., 1], hsv[..., 2]
+    i = np.floor(h).astype(np.int32) % 6
+    f = h - np.floor(h)
+    p, q, t = v * (1 - s), v * (1 - s * f), v * (1 - s * (1 - f))
+    table = np.stack(
+        [
+            np.stack([v, t, p], -1), np.stack([q, v, p], -1),
+            np.stack([p, v, t], -1), np.stack([p, q, v], -1),
+            np.stack([t, p, v], -1), np.stack([v, p, q], -1),
+        ],
+        axis=0,
+    )
+    return np.take_along_axis(table, i[None, ..., None], axis=0)[0]
+
+
+@dataclasses.dataclass
+class AugmentSpec:
+    """SwAV recipe knobs (swav_1node_resnet_submit.yaml:32-49)."""
+
+    crop_scales: Sequence[Tuple[float, float]] = ((0.14, 1.0), (0.05, 0.14))
+    flip_p: float = 0.5
+    color_strength: float = 1.0  # 0 disables color distortion entirely
+    color_p: float = 0.8
+    grayscale_p: float = 0.2
+    blur_p: float = 0.5
+    blur_radius: Tuple[float, float] = (0.1, 2.0)
+    normalize: bool = True
+
+
+def augment_multicrop(
+    img,
+    spec: MultiCropSpec,
+    aug: AugmentSpec,
+    rng: np.random.Generator,
+) -> List[np.ndarray]:
+    """One image -> ``spec.num_crops`` augmented float32 HWC views, in crop
+    order (globals first). The full reference stack per crop:
+    RandomResizedCrop -> flip -> color distortion -> blur -> normalize."""
+    from PIL import Image, ImageFilter
+
+    if not isinstance(img, Image.Image):
+        img = Image.fromarray(np.asarray(img).astype(np.uint8))
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    if len(aug.crop_scales) != len(spec.sizes):
+        # zip would silently truncate resolution groups, breaking the
+        # spec.num_crops contract the batch grouping relies on
+        raise ValueError(
+            f"aug.crop_scales has {len(aug.crop_scales)} entries but the "
+            f"crop spec has {len(spec.sizes)} resolution groups"
+        )
+    crops = []
+    for size, count, scale in zip(spec.sizes, spec.counts, aug.crop_scales):
+        for _ in range(count):
+            view = _random_resized_crop(img, size, scale, rng)
+            if rng.random() < aug.flip_p:
+                view = view.transpose(Image.FLIP_LEFT_RIGHT)
+            arr = np.asarray(view, np.float32) / 255.0
+            if aug.color_strength:
+                if rng.random() < aug.color_p:
+                    arr = _color_jitter(arr, aug.color_strength, rng)
+                if rng.random() < aug.grayscale_p:
+                    arr = np.repeat(_grayscale(arr)[..., None], 3, axis=-1)
+            if aug.blur_p and rng.random() < aug.blur_p:
+                radius = rng.uniform(*aug.blur_radius)
+                blurred = Image.fromarray(
+                    (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+                ).filter(ImageFilter.GaussianBlur(radius=radius))
+                arr = np.asarray(blurred, np.float32) / 255.0
+            if aug.normalize:
+                arr = (arr - IMAGENET_MEAN) / IMAGENET_STD
+            crops.append(arr.astype(np.float32))
+    return crops
+
+
+def iter_image_files(path: str) -> List[str]:
+    """Sorted image files under ``path`` (flat dir or one subdir per class —
+    the disk_folder layout vissl's GenericSSLDataset reads)."""
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    out = []
+    for dirpath, _dirnames, filenames in os.walk(path):
+        for name in filenames:
+            if name.lower().endswith(exts):
+                out.append(os.path.join(dirpath, name))
+    return sorted(out)
+
+
+def image_folder_multicrop_batches(
+    path: str,
+    spec: MultiCropSpec,
+    batch_size: int,
+    seed: int = 0,
+    aug: Optional[AugmentSpec] = None,
+) -> Iterator[List[np.ndarray]]:
+    """Infinite augmented multicrop stream over a real image folder; same
+    crop-group layout as ``synthetic_multicrop_batches`` ([count*B, S, S, C]
+    per resolution group, views concatenated in crop order)."""
+    from PIL import Image
+
+    aug = aug or AugmentSpec()
+    files = iter_image_files(path)
+    if not files:
+        raise FileNotFoundError(f"no image files under {path}")
+    rng = np.random.default_rng(seed)
+    while True:
+        chosen = rng.choice(len(files), size=batch_size, replace=len(files) < batch_size)
+        per_image = []
+        for idx in chosen:
+            with Image.open(files[int(idx)]) as im:
+                per_image.append(augment_multicrop(im, spec, aug, rng))
+        groups: List[np.ndarray] = []
+        crop_idx = 0
+        for size, count in zip(spec.sizes, spec.counts):
+            views = [
+                np.stack([img_crops[crop_idx + v] for img_crops in per_image])
+                for v in range(count)
+            ]
+            crop_idx += count
+            groups.append(np.concatenate(views, axis=0))
+        yield groups
+
+
+def synthetic_labeled_images(
+    num_images: int,
+    size: int = 32,
+    num_classes: int = 8,
+    channels: int = 3,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Labeled single-crop fixture for linear-probe evaluation
+    (SyntheticImageDataset capability, sized test-small): each class has a
+    fixed mean color, so even a random frozen trunk yields linearly
+    separable pooled features. Returns (images [N,S,S,C] f32, labels [N])."""
+    rng = np.random.default_rng(seed)
+    class_means = rng.standard_normal((num_classes, 1, 1, channels)) * 1.5
+    labels = rng.integers(0, num_classes, num_images)
+    noise = rng.standard_normal(
+        (num_images, size, size, channels)
+    ).astype(np.float32) * 0.1
+    images = (class_means[labels] + noise).astype(np.float32)
+    return images, labels.astype(np.int32)

@@ -1,5 +1,5 @@
-"""Carry ALBERT weights between the JAX package's parameter names and the
-port's modules.
+"""Carry weights between the JAX package's parameter names and the port's
+modules (ALBERT, and the SwAV ResNet with its prototypes head).
 
 The JAX side is a flat numpy dict keyed by the swarm's wire naming,
 ``jax.tree_util.keystr`` paths such as
@@ -9,8 +9,15 @@ The JAX side is a flat numpy dict keyed by the swarm's wire naming,
 (``albert.encoder.layer.block.attention.query.weight``). Leaf rules:
 
 - ``kernel`` ``[in, out]`` <-> a ``Linear`` ``weight`` ``[out, in]`` (transposed);
-- ``scale`` <-> a LayerNorm ``weight``; ``embedding`` <-> an ``Embedding``
-  ``weight``; ``bias`` and ``mlm_bias`` keep their names.
+- a 4-D ``kernel`` HWIO <-> a ``Conv2d`` ``weight`` OIHW (permuted);
+- ``scale`` <-> a LayerNorm or BatchNorm ``weight``; ``embedding`` <-> an
+  ``Embedding`` ``weight``; ``bias``, ``mlm_bias`` and the batch statistics
+  ``mean`` and ``var`` keep their names.
+
+A leaf's layout is a permutation ``perm`` (``None`` where the layouts agree):
+the JAX array is ``torch_tensor.permute(perm)`` (``to_jax_layout``), and the
+port's tensor is the JAX array under the inverse permutation
+(``from_jax_layout``).
 
 ``params_to_jax(params_from_jax(named))`` gives back the same names, shapes,
 dtypes and values exactly.
@@ -18,12 +25,15 @@ dtypes and values exactly.
 The shared state a peer serves and loads is the flattened
 ``(params, opt_state)`` pair of the JAX trainer, named as
 ``collaborative/optimizer.py`` ``_tree_to_named`` names it: params under
-``[0]``, then the optax chain of ``lamb`` under ``[1][i]`` (an optional
-global-norm clip with no leaves, the LAMB moments ``.count``/``.mu``/``.nu``,
-and the learning-rate schedule's ``.count`` when the rate is a schedule).
-``state_to_jax`` and ``state_from_jax`` carry the port's ``(params,
-LambState)`` to and from those names; ``grad_name`` gives a gradient the
-name ``named_device_leaves`` gives it in the JAX package (no ``[0]``).
+``[0]``, then the optimizer's state under ``[1]``. For the optax chain of
+``lamb``: ``[1][i]`` (an optional global-norm clip with no leaves, the LAMB
+moments ``.count``/``.mu``/``.nu``, and the learning-rate schedule's
+``.count`` when the rate is a schedule); for ``lars``: ``[1][0].momentum``
+and ``[1][1].count``. ``state_to_jax`` and ``state_from_jax`` carry the
+port's ``(params, LambState)`` to and from the LAMB names,
+``lars_state_views`` and ``lars_state_from_jax`` the ``(params,
+LarsState)`` pair; ``grad_name`` gives a gradient the name
+``named_device_leaves`` gives it in the JAX package (no ``[0]``).
 """
 from __future__ import annotations
 
@@ -50,35 +60,64 @@ def keystr(keys) -> str:
     return "".join(f"['{k}']" for k in keys)
 
 
-def torch_name(keys: Tuple[str, ...]) -> Tuple[str, bool]:
-    """(module path, transpose?) for the JAX leaf at ``keys``."""
+Perm = Optional[Tuple[int, ...]]
+
+# torch layout -> JAX layout of a kernel, by rank: Linear [out, in] -> [in,
+# out]; Conv2d OIHW -> HWIO
+_KERNEL_PERM = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def inverse_perm(perm: Perm) -> Perm:
+    if perm is None:
+        return None
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return tuple(inv)
+
+
+def to_jax_layout(t: torch.Tensor, perm: Perm) -> torch.Tensor:
+    """The port's tensor as a view in the JAX element order."""
+    return t if perm is None else t.permute(perm)
+
+
+def from_jax_layout(a, perm: Perm):
+    """A JAX-layout array or tensor in the port's layout (a view)."""
+    if perm is None:
+        return a
+    inv = inverse_perm(perm)
+    return a.permute(inv) if isinstance(a, torch.Tensor) else np.transpose(a, inv)
+
+
+def torch_name(keys: Tuple[str, ...], ndim: int) -> Tuple[str, Perm]:
+    """(module path, perm) for the JAX leaf at ``keys`` of rank ``ndim``."""
     *mods, leaf = keys
     if leaf == "kernel":
-        return ".".join(mods + ["weight"]), True
+        return ".".join(mods + ["weight"]), _KERNEL_PERM[ndim]
     if leaf in ("scale", "embedding"):
-        return ".".join(mods + ["weight"]), False
-    return ".".join(keys), False
+        return ".".join(mods + ["weight"]), None
+    return ".".join(keys), None
 
 
-def jax_keys(name: str, ndim: int) -> Tuple[Tuple[str, ...], bool]:
-    """(JAX keys, transpose?) for the port's parameter ``name``."""
+def jax_keys(name: str, ndim: int) -> Tuple[Tuple[str, ...], Perm]:
+    """(JAX keys, perm) for the port's parameter ``name`` of rank ``ndim``."""
     *mods, leaf = name.split(".")
     if leaf != "weight":
-        return tuple(mods + [leaf]), False
+        return tuple(mods + [leaf]), None
     if ndim == 1:
-        return tuple(mods + ["scale"]), False
+        return tuple(mods + ["scale"]), None
     if mods and mods[-1].endswith("_embeddings"):
-        return tuple(mods + ["embedding"]), False
-    return tuple(mods + ["kernel"]), True
+        return tuple(mods + ["embedding"]), None
+    return tuple(mods + ["kernel"]), _KERNEL_PERM[ndim]
 
 
 def params_from_jax(named: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """JAX leaf dict -> the port's ``state_dict`` (CPU tensors)."""
     out = {}
     for name, arr in named.items():
-        tname, transpose = torch_name(jax_path(name))
         a = np.asarray(arr)
-        out[tname] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+        tname, perm = torch_name(jax_path(name), a.ndim)
+        out[tname] = torch.from_numpy(np.array(from_jax_layout(a, perm), order="C"))
     return out
 
 
@@ -96,17 +135,31 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     JAX leaf dict keyed by keystr (a copy, not a view of the tensors)."""
     out = {}
     for name, t in params.items():
-        a = t.detach().cpu().numpy()
-        keys, transpose = jax_keys(name, a.ndim)
-        out[keystr(keys)] = np.array(a.T if transpose else a, order="C")
+        keys, perm = jax_keys(name, t.ndim)
+        a = to_jax_layout(t.detach(), perm).cpu().numpy()
+        out[keystr(keys)] = np.array(a, order="C")
     return out
 
 
-def grad_name(name: str, ndim: int) -> Tuple[str, bool]:
-    """(JAX keystr name, transpose?) of the port's parameter or gradient
+def grad_name(name: str, ndim: int) -> Tuple[str, Perm]:
+    """(JAX keystr name, perm) of the port's parameter or gradient
     ``name``: the wire name of that gradient leaf in the JAX package."""
-    keys, transpose = jax_keys(name, ndim)
-    return keystr(keys), transpose
+    keys, perm = jax_keys(name, ndim)
+    return keystr(keys), perm
+
+
+def _named_views(prefix: str, tensors: Mapping[str, torch.Tensor],
+                 out: Dict[str, torch.Tensor]) -> None:
+    """``out[prefix + JAX name] =`` each tensor as a view in the JAX element
+    order (nothing is copied)."""
+    for name, t in tensors.items():
+        jname, perm = grad_name(name, t.ndim)
+        out[prefix + jname] = to_jax_layout(t.detach(), perm)
+
+
+def _count(c, device) -> torch.Tensor:
+    c = c if isinstance(c, torch.Tensor) else torch.tensor(int(c))
+    return c.to(device=device, dtype=torch.int32)
 
 
 def lamb_chain_slots(clip: bool, schedule: bool) -> Tuple[int, Optional[int]]:
@@ -130,17 +183,11 @@ def state_views(params: Mapping[str, torch.Tensor], lamb_state, clip: bool,
     for prefix, tensors in (("[0]", params),
                             (f"[1][{moments}].mu", lamb_state.mu),
                             (f"[1][{moments}].nu", lamb_state.nu)):
-        for name, t in tensors.items():
-            jname, transpose = grad_name(name, t.ndim)
-            t = t.detach()
-            out[prefix + jname] = t.t() if transpose else t
+        _named_views(prefix, tensors, out)
     device = next(iter(params.values())).device
-    counts = [(f"[1][{moments}].count", lamb_state.count)]
+    out[f"[1][{moments}].count"] = _count(lamb_state.count, device)
     if sched is not None:
-        counts.append((f"[1][{sched}].count", lamb_state.schedule_count))
-    for name, c in counts:
-        c = c if isinstance(c, torch.Tensor) else torch.tensor(int(c))
-        out[name] = c.to(device=device, dtype=torch.int32)
+        out[f"[1][{sched}].count"] = _count(lamb_state.schedule_count, device)
     return out
 
 
@@ -194,3 +241,39 @@ def state_from_jax(named: Mapping[str, np.ndarray]):
         schedule_count=counts.get(slot_of_moments + 1, 0),
     )
     return params_from_jax(params), state
+
+
+def lars_state_views(params: Mapping[str, torch.Tensor],
+                     lars_state) -> Dict[str, torch.Tensor]:
+    """The port's ``(params, LarsState)`` under the JAX SwAV peer's
+    shared-state names (``lars`` returns the pair ``(LarsState(momentum),
+    ScaleByScheduleState(count))``): ``[0]`` params, ``[1][0].momentum``
+    and ``[1][1].count``, as views in the JAX element order."""
+    out: Dict[str, torch.Tensor] = {}
+    _named_views("[0]", params, out)
+    _named_views("[1][0].momentum", lars_state.momentum, out)
+    device = next(iter(params.values())).device
+    out["[1][1].count"] = _count(lars_state.schedule_count, device)
+    return out
+
+
+def lars_state_from_jax(named: Mapping[str, np.ndarray]):
+    """The JAX SwAV peer's shared state -> ``(params, LarsState)`` on the
+    CPU (the count as an int). Raises ``KeyError`` on names that are not a
+    ``lars`` state's."""
+    from dedloc_tpu_torch.optim.lars import LarsState
+
+    params, momentum, count = {}, {}, None
+    for name, arr in named.items():
+        if name.startswith("[0]"):
+            params[name[3:]] = arr
+        elif name.startswith("[1][0].momentum"):
+            momentum[name[len("[1][0].momentum"):]] = arr
+        elif name == "[1][1].count":
+            count = int(np.asarray(arr))
+        else:
+            raise KeyError(f"not a lars state name: {name!r}")
+    if count is None:
+        raise KeyError("no lars schedule count in the state")
+    return params_from_jax(params), LarsState(
+        momentum=params_from_jax(momentum), schedule_count=count)

@@ -1,20 +1,21 @@
-"""Flat-segment LAMB: the optimizer math over ONE flat buffer.
+"""Flat-segment LAMB / LARS: the optimizer math over ONE flat buffer.
 
-Port of ``dedloc_tpu/optim/flat.py`` (``FlatLars`` comes with the SwAV
-slice). The averaging path lives on a flat fp32 vector in the sorted-name
-``TreeLayout`` order of the JAX wire names; ``FlatLamb`` runs the whole
-LAMB update (moments, debias, weight decay, per-layer trust ratios) on that
-vector, with the per-layer norms as SEGMENT reductions over the layout's
-contiguous spans.
+Port of ``dedloc_tpu/optim/flat.py``. The averaging path lives on a flat
+fp32 vector in the sorted-name ``TreeLayout`` order of the JAX wire names;
+``FlatLamb`` runs the whole LAMB update (moments, debias, weight decay,
+per-layer trust ratios) on that vector and ``FlatLars`` the whole LARC
+update (weight decay, per-layer local rates, momentum), with the per-layer
+norms as SEGMENT reductions over the layout's contiguous spans.
 
 Determinism: every replica must apply the identical averaged bytes to
 identical state and get identical bits, so the segment reductions are one
 ``torch.dot`` per span (no ``index_add_``/``scatter_add_`` or other
 atomics), and the per-segment broadcast back is a ``repeat_interleave``.
 
-Numerics follow the port's per-leaf ``Lamb`` (``optim/lamb.py``): the same
-operations in the same order on a one-leaf vector; the only differences are
-the reduction order of the norms and the decay-mask expansion.
+Numerics follow the port's per-leaf ``Lamb`` and ``Lars`` (``optim/lamb.py``,
+``optim/lars.py``): the same operations in the same order on a one-leaf
+vector; the only differences are the reduction order of the norms and the
+mask expansions.
 ``parallel.train_step.make_flat_apply_step`` consumes it.
 """
 from __future__ import annotations
@@ -146,6 +147,76 @@ class FlatLamb:
         trusted = adam_step * expand_segments(ratio, sizes, self.total)
         lr = self._chain._lr(sched_count)
         return -lr * trusted, mu, nu, count
+
+
+class FlatLars:
+    """The port's ``Lars`` over one flat fp32 buffer: per-layer local rates
+    from segment norms, momentum folded in. ``excluded_flags`` marks spans
+    the trust adaptation skips (plain ``-lr * g``, apex LARC's skip list).
+    The persistent state stays the per-leaf ``LarsState``."""
+
+    def __init__(
+        self,
+        spec,
+        excluded_flags: Sequence[bool],
+        learning_rate,
+        momentum: float = 0.9,
+        weight_decay: float = 1e-6,
+        trust_coefficient: float = 0.001,
+        eps: float = 1e-8,
+        clip: bool = True,
+    ) -> None:
+        from dedloc_tpu_torch.optim.lars import Lars
+
+        self.spans = spec_spans(spec)
+        self.total = sum(s for _o, s in self.spans)
+        self.excluded_flags = np.asarray(list(excluded_flags), np.float32)
+        if len(self.excluded_flags) != len(self.spans):
+            raise ValueError("one exclusion flag per spec entry")
+        # the per-leaf chain's learning-rate rule
+        self._chain = Lars(learning_rate, momentum=momentum,
+                           weight_decay=weight_decay,
+                           trust_coefficient=trust_coefficient, eps=eps,
+                           clip=clip)
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        self.trust_coefficient = float(trust_coefficient)
+        self.eps = float(eps)
+        self.clip = bool(clip)
+        self._on_device = {}  # device -> (segment sizes, exclusion flags)
+
+    def _segments(self, device):
+        cached = self._on_device.get(device)
+        if cached is None:
+            cached = self._on_device[device] = (
+                segment_sizes(self.spans, device),
+                torch.from_numpy(self.excluded_flags).to(device))
+        return cached
+
+    def update(
+        self,
+        flat_grads: torch.Tensor,
+        flat_params: torch.Tensor,
+        flat_momentum: torch.Tensor,
+        sched_count: torch.Tensor,
+    ):
+        """One LARS step on flat buffers (``sched_count`` a 0-d int32
+        tensor). Returns ``(flat_updates, new_flat_momentum)``: the update
+        added to the params is the new momentum."""
+        from dedloc_tpu_torch.optim.lars import local_rate
+
+        sizes, excluded = self._segments(flat_grads.device)
+        lr = self._chain._lr(sched_count)
+        g = flat_grads + self.weight_decay * flat_params
+        w_norm = torch.sqrt(segment_sumsq(flat_params, self.spans))
+        g_norm = torch.sqrt(segment_sumsq(g, self.spans))
+        rate = local_rate(w_norm, g_norm, lr, self.trust_coefficient,
+                          self.eps, self.clip)
+        excl = expand_segments(excluded, sizes, self.total)
+        per_elem = expand_segments(rate, sizes, self.total)
+        scaled = -(excl * lr + (1.0 - excl) * per_elem) * g
+        new_mom = self.momentum * flat_momentum + scaled
+        return new_mom, new_mom
 
 
 def tree_flags(mask: Mapping[str, bool], params: Mapping[str, torch.Tensor],

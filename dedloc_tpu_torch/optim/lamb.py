@@ -27,7 +27,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from dedloc_tpu_torch.models.convert import jax_keys
+from dedloc_tpu_torch.models.convert import jax_keys, state_from_jax, state_views
 from dedloc_tpu_torch.utils.device import divide
 
 Params = Mapping[str, torch.Tensor]
@@ -154,3 +154,14 @@ class Lamb:
             updates[n] = step_size * u
         return updates, LambState(count=count, mu=new_mu, nu=new_nu,
                                   schedule_count=state.schedule_count + 1)
+
+    def state_views(self, params: Params, state: LambState) -> Dict[str, torch.Tensor]:
+        """``(params, state)`` under the JAX trainer's shared-state names,
+        as views in the JAX element order (``models.convert.state_views``)."""
+        return state_views(params, state, clip=self.max_grad_norm is not None,
+                           schedule=self.has_schedule)
+
+    def state_from_named(self, named):
+        """The shared state under JAX names -> ``(params, LambState)`` on the
+        CPU; raises ``KeyError``/``ValueError`` on a foreign state."""
+        return state_from_jax(named)

@@ -4,7 +4,8 @@ Copy of ``dedloc_tpu/optim/schedules.py``: pure functions of the optimizer
 step, computed in float32 (numpy) as the JAX versions compute them. The
 linear schedule also takes a 0-d tensor step (the guarded applies keep the
 count on the card) and then computes the same float32 operations there,
-so both forms give the same bits.
+so both forms give the same bits; the cosine schedule's tensor path
+computes the numpy path's float32 operations with ``torch.cos``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from dedloc_tpu_torch.utils.device import divide
 
 Schedule = Callable[[int], float]
 _f32 = np.float32
@@ -56,7 +59,19 @@ def linear_warmup_cosine_annealing(
 ) -> Schedule:
     """LinearWarmupCosineAnnealingLR equivalent."""
 
-    def schedule(step) -> float:
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            s = step.to(torch.float32)
+            const = lambda v: torch.full_like(s, float(_f32(v)))
+            warm = const(warmup_start_lr) + divide(
+                (const(peak_lr) - const(warmup_start_lr)) * s,
+                max(1.0, warmup_steps))
+            progress = divide(s - const(warmup_steps),
+                              max(1.0, total_steps - warmup_steps))
+            progress = torch.clamp(progress, 0.0, 1.0)
+            cos = const(eta_min) + (const(peak_lr) - const(eta_min)) * 0.5 * (
+                1.0 + torch.cos(const(np.pi) * progress))
+            return torch.where(s < warmup_steps, warm, cos)
         step = _f32(step)
         if step < warmup_steps:
             warm = _f32(warmup_start_lr) + (

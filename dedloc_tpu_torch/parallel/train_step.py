@@ -123,14 +123,12 @@ def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1) -> Cal
     return train_step
 
 
-def _no_mesh(mesh, opt_state_sharding, param_sharding, post_apply) -> None:
+def _no_mesh(mesh, opt_state_sharding, param_sharding) -> None:
     if mesh is not None or opt_state_sharding is not None or param_sharding is not None:
         raise NotImplementedError(
             "mesh, opt_state_sharding and param_sharding come with the "
             "parallel-axes slice (ROADMAP, queue A); the port applies on one "
             "device")
-    if post_apply is not None:
-        raise NotImplementedError("post_apply comes with the SwAV slice")
 
 
 def _device_count(x, device: torch.device) -> torch.Tensor:
@@ -147,14 +145,31 @@ def _all_finite(tensors) -> torch.Tensor:
     return torch.stack(flags).all() if flags else torch.tensor(True)
 
 
+def _is_tensors(field) -> bool:
+    """An optimizer-state field holding per-parameter tensors (moments,
+    momentum); the other fields are counts."""
+    return isinstance(field, dict)
+
+
 def _with_device_counts(state: TrainState, device) -> TrainState:
+    """``state`` with its step and every count of its optimizer state (a
+    NamedTuple: ``LambState``, ``LarsState``) as 0-d device tensors."""
     opt = state.opt_state
     return TrainState(
         step=_device_count(state.step, device), params=state.params,
-        opt_state=opt._replace(
-            count=_device_count(opt.count, device),
-            schedule_count=_device_count(opt.schedule_count, device)),
+        opt_state=opt._replace(**{
+            f: _device_count(v, device) for f, v in opt._asdict().items()
+            if not _is_tensors(v)}),
     )
+
+
+def _select(ok: torch.Tensor, new, old):
+    """``torch.where(ok, new, old)`` over an optimizer state, field by
+    field (per tensor for the tensor dicts)."""
+    return old._replace(**{
+        f: ({n: torch.where(ok, getattr(new, f)[n], prev[n]) for n in prev}
+            if _is_tensors(prev) else torch.where(ok, getattr(new, f), prev))
+        for f, prev in old._asdict().items()})
 
 
 def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
@@ -162,33 +177,34 @@ def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
     """``make_apply_step`` with the NaN guard folded in: (state,
     mean_grads) -> (state', ok).
 
-    The update is computed out of place; one all-finite reduce over the new
-    params gives the device bool ``ok``, and ``torch.where(ok, new, old)``
-    selects what is kept: the params are written in place, the step, the
-    counts and the moments of a rejected update come back bitwise
-    unchanged. No full copy of the state is taken and nothing waits on the
-    host; the caller reads ``ok`` later."""
-    _no_mesh(mesh, opt_state_sharding, param_sharding, post_apply)
+    The update is computed out of place; ``post_apply`` (e.g. the SwAV
+    prototype re-normalization: ``TrainState -> TrainState`` on the new,
+    out-of-place params) runs on the new state, then one all-finite reduce
+    over its params gives the device bool ``ok``, and ``torch.where(ok,
+    new, old)`` selects what is kept: the params are written in place, the
+    step, the counts and the optimizer's tensors of a rejected update come
+    back bitwise unchanged. Generic over the optimizer's state (``Lamb``'s
+    moments and counts, ``Lars``'s momentum and count). No full copy of the
+    state is taken and nothing waits on the host; the caller reads ``ok``
+    later."""
+    _no_mesh(mesh, opt_state_sharding, param_sharding)
 
     @torch.no_grad()
     def apply(state: TrainState, grads):
         device = next(iter(state.params.values())).device
         state = _with_device_counts(state, device)
         updates, new_opt = tx.update(grads, state.opt_state, state.params)
-        new_params = {n: p + updates[n] for n, p in state.params.items()}
-        ok = _all_finite(new_params.values())
+        new = TrainState(step=state.step + 1,
+                         params={n: p + updates[n] for n, p in state.params.items()},
+                         opt_state=new_opt)
+        if post_apply is not None:
+            new = post_apply(new)
+        ok = _all_finite(new.params.values())
         for n, p in state.params.items():
-            p.copy_(torch.where(ok, new_params[n], p))
-        old = state.opt_state
-        keep = lambda new, prev: {n: torch.where(ok, new[n], prev[n]) for n in prev}
-        opt_state = old._replace(
-            count=torch.where(ok, new_opt.count, old.count),
-            mu=keep(new_opt.mu, old.mu), nu=keep(new_opt.nu, old.nu),
-            schedule_count=torch.where(ok, new_opt.schedule_count,
-                                       old.schedule_count),
-        )
-        step = torch.where(ok, state.step + 1, state.step)
-        return TrainState(step=step, params=state.params, opt_state=opt_state), ok
+            p.copy_(torch.where(ok, new.params[n], p))
+        step = torch.where(ok, new.step, state.step)
+        return TrainState(step=step, params=state.params,
+                          opt_state=_select(ok, new_opt, state.opt_state)), ok
 
     return apply
 
@@ -196,66 +212,96 @@ def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
 class FlatLayout:
     """Where each parameter sits in a wire-layout flat buffer: for each
     spec entry (sorted JAX names), the port's parameter name, its span and
-    JAX shape, and whether the port stores it transposed (a ``Linear``
-    weight is ``[out, in]``, a JAX kernel ``[in, out]``)."""
+    JAX shape, and the permutation from the port's layout to the JAX one
+    (``models.convert``: a ``Linear`` weight ``[out, in]`` is a JAX kernel
+    ``[in, out]``, a ``Conv2d`` weight OIHW a kernel HWIO; None where they
+    agree)."""
 
     def __init__(self, spec, params: Mapping[str, torch.Tensor]):
         from dedloc_tpu_torch.models.convert import grad_name
 
         by_jax = {}
         for n, p in params.items():
-            jname, transpose = grad_name(n, p.ndim)
-            by_jax[jname] = (n, transpose)
+            jname, perm = grad_name(n, p.ndim)
+            by_jax[jname] = (n, perm)
         names = [name for name, _shape, _dtype in spec]
         if sorted(by_jax) != sorted(names):
             raise ValueError("flat apply spec does not match the parameter tree")
-        self.entries: List[Tuple[str, int, int, Tuple[int, ...], bool]] = []
+        self.entries: List[Tuple[str, int, int, Tuple[int, ...], Any]] = []
         offset = 0
         for name, shape, _dtype in spec:
             size = int(np.prod(shape)) if shape else 1
-            tname, transpose = by_jax[name]
-            self.entries.append((tname, offset, size, tuple(shape), transpose))
+            tname, perm = by_jax[name]
+            self.entries.append((tname, offset, size, tuple(shape), perm))
             offset += size
         self.total = offset
         self.key = [(name, tuple(shape)) for name, shape, _dtype in spec]
 
     def flatten(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One fp32 buffer in spec order, in the JAX layout."""
+        from dedloc_tpu_torch.models.convert import to_jax_layout
+
         return torch.cat([
-            (tensors[n].t() if t else tensors[n]).reshape(-1).to(torch.float32)
-            for n, _o, _s, _shape, t in self.entries
+            to_jax_layout(tensors[n], perm).reshape(-1).to(torch.float32)
+            for n, _o, _s, _shape, perm in self.entries
         ])
+
+    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The port's tensors as views of ``flat`` (in the port's layout)."""
+        from dedloc_tpu_torch.models.convert import from_jax_layout
+
+        return {n: from_jax_layout(flat[o:o + s].view(shape), perm)
+                for n, o, s, shape, perm in self.entries}
 
     def unflatten_into(self, flat: torch.Tensor,
                        tensors: Mapping[str, torch.Tensor]) -> None:
-        """Write ``flat`` back into ``tensors`` (in place), transposing
-        where the port's layout differs."""
-        for n, o, s, shape, t in self.entries:
-            view = flat[o:o + s].view(shape)
-            tensors[n].copy_(view.t() if t else view)
+        """Write ``flat`` back into ``tensors`` (in place), permuted where
+        the port's layout differs."""
+        for n, view in self.views(flat).items():
+            tensors[n].copy_(view)
+
+
+def _flat_update(flat_tx, layout: FlatLayout, flat_grads, flat_params, opt):
+    """One flat optimizer step: (updates, {field: (new flat, old flat)} for
+    the optimizer's tensor fields, {count field: new count})."""
+    from dedloc_tpu_torch.optim.flat import FlatLamb, FlatLars
+
+    if isinstance(flat_tx, FlatLamb):
+        flat_mu, flat_nu = layout.flatten(opt.mu), layout.flatten(opt.nu)
+        updates, mu, nu, count = flat_tx.update(
+            flat_grads, flat_params, flat_mu, flat_nu, opt.count,
+            opt.schedule_count)
+        return updates, {"mu": (mu, flat_mu), "nu": (nu, flat_nu)}, {"count": count}
+    if isinstance(flat_tx, FlatLars):
+        flat_mom = layout.flatten(opt.momentum)
+        updates, mom = flat_tx.update(flat_grads, flat_params, flat_mom,
+                                      opt.schedule_count)
+        return updates, {"momentum": (mom, flat_mom)}, {}
+    raise TypeError(f"unsupported flat optimizer {type(flat_tx)!r}")
 
 
 def make_flat_apply_step(flat_tx, spec, post_apply=None,
                          from_tree: bool = False) -> Callable:
     """Flat apply: (state, flat_mean_grads) -> (state', ok).
 
-    ``flat_tx`` is an ``optim.flat.FlatLamb`` and ``spec`` the TreeLayout
-    spec (sorted JAX names) that the flat gradient buffer follows: the
-    averaging wire's spec, so the averaged result goes to the card as ONE
-    buffer. Params and moments are flattened onto that layout (transposed
-    where the port stores them transposed), the whole LAMB update runs as
-    segment reductions over the flat buffer, one all-finite reduce over the
-    new flat params gives ``ok``, and ``torch.where(ok, new, old)`` on the
-    flat buffers selects what is written back. The persistent state stays
-    the per-leaf ``LambState`` (checkpoints, state sharing and wire names
-    unchanged).
+    ``flat_tx`` is an ``optim.flat.FlatLamb`` or ``FlatLars`` and ``spec``
+    the TreeLayout spec (sorted JAX names) that the flat gradient buffer
+    follows: the averaging wire's spec, so the averaged result goes to the
+    card as ONE buffer. Params and the optimizer's tensors are flattened
+    onto that layout (permuted where the port's layout differs), the whole
+    update runs as segment reductions over the flat buffer, one all-finite
+    reduce over the new flat params gives ``ok``, and ``torch.where(ok,
+    new, old)`` on the flat buffers selects what is written back. With
+    ``post_apply`` (``TrainState -> TrainState``) the new params go through
+    it as views of the new flat buffer, and ``ok`` reads its output, as the
+    guarded apply does. The persistent state stays the per-leaf optimizer
+    state (checkpoints, state sharing and wire names unchanged).
 
     ``from_tree=True`` takes a dict of gradients keyed by parameter name
     (the solo path, where gradients were never flattened)."""
-    from dedloc_tpu_torch.optim.flat import FlatLamb
+    from dedloc_tpu_torch.optim.flat import FlatLamb, FlatLars
 
-    _no_mesh(None, None, None, post_apply)
-    if not isinstance(flat_tx, FlatLamb):
+    if not isinstance(flat_tx, (FlatLamb, FlatLars)):
         raise TypeError(f"unsupported flat optimizer {type(flat_tx)!r}")
     layouts: Dict[Tuple[str, ...], FlatLayout] = {}
 
@@ -270,22 +316,29 @@ def make_flat_apply_step(flat_tx, spec, post_apply=None,
         opt = state.opt_state
         flat_grads = layout.flatten(grads) if from_tree else grads
         flat_params = layout.flatten(state.params)
-        flat_mu, flat_nu = layout.flatten(opt.mu), layout.flatten(opt.nu)
-        updates, new_mu, new_nu, new_count = flat_tx.update(
-            flat_grads, flat_params, flat_mu, flat_nu, opt.count,
-            opt.schedule_count)
+        updates, tensors, counts = _flat_update(flat_tx, layout, flat_grads,
+                                                flat_params, opt)
         new_params = flat_params + updates
-        ok = torch.isfinite(new_params).all()
-        for new, old, dst in ((new_params, flat_params, state.params),
-                              (new_mu, flat_mu, opt.mu),
-                              (new_nu, flat_nu, opt.nu)):
-            layout.unflatten_into(torch.where(ok, new, old), dst)
+        step = state.step + 1
+        if post_apply is None:
+            ok = torch.isfinite(new_params).all()
+            tensors["params"] = (new_params, flat_params)
+        else:
+            new = post_apply(TrainState(step=step, params=layout.views(new_params),
+                                        opt_state=opt))
+            ok = _all_finite(new.params.values())
+            for n, p in state.params.items():
+                p.copy_(torch.where(ok, new.params[n], p))
+            step = new.step
+        for field, (new_flat, old_flat) in tensors.items():
+            dst = state.params if field == "params" else getattr(opt, field)
+            layout.unflatten_into(torch.where(ok, new_flat, old_flat), dst)
         opt_state = opt._replace(
-            count=torch.where(ok, new_count, opt.count),
             schedule_count=torch.where(ok, opt.schedule_count + 1,
                                        opt.schedule_count),
+            **{f: torch.where(ok, c, getattr(opt, f)) for f, c in counts.items()},
         )
-        step = torch.where(ok, state.step + 1, state.step)
+        step = torch.where(ok, step, state.step)
         return TrainState(step=step, params=state.params, opt_state=opt_state), ok
 
     return apply

@@ -29,7 +29,7 @@ COPIES = (
     + ["testing/__init__.py", "testing/faults.py"]
     + [f"utils/{n}.py" for n in ("aio", "logging", "stats", "checkpoint")]
     + [f"data/{n}.py" for n in ("__init__", "mlm", "streaming", "tokenizer",
-                                "corpus", "prepare", "disk")]
+                                "corpus", "prepare", "disk", "multicrop")]
     + ["finetune/metrics.py", "native/__init__.py", "serving/records.py",
        "join.py"]
 )

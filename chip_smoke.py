@@ -117,9 +117,34 @@ Phases (any failure exits non-zero):
               trunk's features from that checkpoint (a check, not a
               result).
 
+10. moe      the Switch-MoE ALBERT peer (8 experts, capacity factor 1.25,
+              aux weight 0.01). ``moe_ffn`` on the same bf16 tokens card
+              against CPU (routing on the tokens with a top-1/top-2 gate
+              margin above 1e-5, y on those kept, aux) and the tiny
+              ALBERT-MoE (flash + fused_ln) card against CPU for 4 seeds
+              (loss with aux, whole-gradient relative error). The
+              full-width cell: ALBERT-large with 8 experts at 12 x 512,
+              accumulation 2, remat fused_ln, flash, LAMB, 3 steps with the
+              counters checked (48/48/48/96/96 per step) and one traced; the
+              routing (share of tokens over capacity, aux per application)
+              at init, held against the same model's on the CPU application
+              by application, and after. The MoE layer at that shape: router, dispatch, expert
+              products, combine, the layer and its dense einsum plain
+              version (device time; forward + backward between events).
+              Then the reference's deployment through the CLIs: a
+              coordinator and an aux peer on the CPU (CUDA hidden), two
+              tiny MoE trainers on the card; 2 averaged rounds, the
+              trainers' states bitwise equal after every round, the aux in
+              a round, two alive peers in the coordinator's JSONL. Last,
+              the trainers' checkpoint served: expert hosts in NumPy and a
+              gateway holding the router answer ``gateway.infer`` for 256
+              tokens, within 2e-2 of max |ref| of ``moe_ffn`` on the card
+              on the tokens it keeps; ms per request.
+
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
-line, a ``{"downstream": ...}`` line, a ``{"swav": ...}`` line, the whole
+line, a ``{"downstream": ...}`` line, a ``{"swav": ...}`` line, a
+``{"moe": ...}`` line, the whole
 script's seconds (``{"script_s": ...}``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -751,6 +776,7 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
     batches = synthetic_mlm_batches(cfg, micro_batch, seq, seed)
     wrappers = fa.WRAPPERS + fl.WRAPPERS
     losses, parts = [], []  # per micro-batch: loss, and its (MLM, SOP) terms
+    auxes = []  # per micro-batch with experts: the MoE aux loss (all layers)
 
     def optimizer_step() -> None:
         nonlocal state
@@ -760,6 +786,8 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
             grad_acc, n_acc, metrics = accumulate(params, grad_acc, n_acc, batch)
             losses.append(metrics["loss"])
             parts.append((metrics["mlm_loss"], metrics["sop_loss"]))
+            if "moe_aux" in metrics:
+                auxes.append(metrics["moe_aux"])
         state = apply(state, {k: g / n_acc for k, g in grad_acc.items()})
         torch.cuda.synchronize()
 
@@ -804,6 +832,12 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
     timed = step_s[1:]
     ms = statistics.median(timed) * 1e3
     samples = args.gradient_accumulation_steps * micro_batch
+    extra = {}
+    if auxes:
+        extra["moe_aux"] = [float(a) for a in auxes]
+        log(f"  MoE aux (sum over {cfg.num_hidden_layers} layers) {extra['moe_aux']}")
+        if not all(math.isfinite(a) for a in extra["moe_aux"]):
+            fail(f"{tag}: non-finite MoE aux loss {extra['moe_aux']}")
     return dict(
         steps=steps, micro_batch=micro_batch, seq_length=seq,
         grad_accum=args.gradient_accumulation_steps, remat=cfg.remat,
@@ -813,7 +847,7 @@ def run_path(tag: str, cfg, model, micro_batch: int, seq: int, seed: int,
         ms_per_step=ms, samples_per_s=samples / (ms / 1e3),
         tokens_per_s=samples * seq / (ms / 1e3),
         max_memory_allocated=peak, launches=launches,
-        launches_per_step=per_step[-1], profile=profile,
+        launches_per_step=per_step[-1], profile=profile, **extra,
     )
 
 
@@ -2104,6 +2138,588 @@ def phase_swav(seed: int) -> dict:
                 phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------- phase 10
+
+MOE_EXPERTS = 8  # a Switch Transformer expert count (arXiv 2101.03961)
+MOE_CAPACITY = 1.25  # the JAX defaults and the Switch Transformer's
+MOE_AUX_WEIGHT = 0.01
+MOE_TINY_EXPERTS = 4
+# the tokens a routing comparison counts: top-1/top-2 gate margin above
+# this; closer pairs may order differently under two fp32 products
+MOE_MARGIN = 1e-5
+# card vs CPU at the tiny config (bf16): y on tokens both route alike and
+# keep, of max |ref|; over MOE_TINY_SEEDS seeds, |loss card - loss cpu| and
+# the whole gradient's relative error (the two hidden states differ by bf16
+# rounding). The two limits sit 10-15x above the largest reading over seeds
+# 0-3 on an H100: 6.7e-6 and 1.38e-3
+MOE_Y_TOL = 2e-2
+MOE_TINY_SEEDS = 4
+MOE_LOSS_TOL = 1e-4
+MOE_GRAD_TOL = 1.5e-2
+# the full-width cell's routing at init, card against CPU on the same
+# weights and tokens, per application of the shared block: the share of
+# clear tokens routed alike, |dropped share card - cpu|, |aux| relative.
+# After 24 applications the bf16 hidden states of two devices differ by a
+# few per cent, and so do the JAX package's and the port's on one CPU
+# (tests/test_torch_moe_large.py). Readings on an H100 at seed 0: >= 0.9875,
+# <= 0.0013, <= 8.8e-4
+MOE_ROUTE_AGREE = 0.95
+MOE_DROP_TOL = 0.02
+MOE_AUX_REL = 1e-2
+# the gateway's fp32 NumPy experts against the bf16 layer on the card
+MOE_SERVE_TOL = 2e-2
+MOE_SERVE_TOKENS = 256
+MOE_CLI_STEPS = 2  # averaged global steps each trainer must take
+MOE_CLI_DEADLINE_S = 180.0
+MOE_TINY_FLAGS = ["--training.model_size", "tiny",
+                  "--training.moe_experts", str(MOE_TINY_EXPERTS),
+                  "--training.moe_capacity_factor", str(MOE_CAPACITY),
+                  "--training.moe_aux_weight", str(MOE_AUX_WEIGHT)]
+
+
+def _margins(gates):
+    top2 = gates.topk(2, dim=-1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+def moe_ffn_card_vs_cpu(seed: int) -> dict:
+    """``moe_ffn`` on the same bf16 tokens and weights on the card and on
+    the CPU (tiny widths, 8 x 64 tokens, 4 experts): routing, y and aux."""
+    from dedloc_tpu_torch.parallel import moe
+
+    cfg = moe.MoEConfig(hidden_size=32, ffn_size=64, num_experts=MOE_TINY_EXPERTS,
+                        capacity_factor=MOE_CAPACITY, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    params = moe.init_moe_params(cfg, gen)
+    params["router"] = params["router"] * 4.0  # gates away from uniform
+    x = torch.randn(8 * 64, 32, generator=gen).to(torch.bfloat16)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device) for k, v in params.items()}
+        xd = x.to(device)
+        r = moe.route(p["router"], xd, cfg)
+        y, aux = moe.moe_ffn(p, xd, cfg)
+        runs[device] = (r, y.float().cpu(), float(aux))
+    (rc, yc, aux_c), (rp, yp, aux_p) = runs["cuda"], runs["cpu"]
+    clear = _margins(rp.gates) > MOE_MARGIN
+    same = (rc.expert.cpu() == rp.expert) & (rc.position.cpu() == rp.position)
+    if not bool(same[clear].all()):
+        fail(f"moe: card and CPU route {int((~same[clear]).sum())} tokens with "
+             f"a gate margin above {MOE_MARGIN} differently")
+    both = clear & rp.keep & same
+    scale = float(yp.abs().max())
+    err = check_close("moe_ffn card vs cpu (kept, clear tokens)", yc[both], yp[both],
+                      MOE_Y_TOL * scale, 0.0)
+    if abs(aux_c - aux_p) > 1e-5 * abs(aux_p):
+        fail(f"moe: aux card {aux_c} vs cpu {aux_p}")
+    out = dict(tokens=x.shape[0], clear_share=float(clear.float().mean()),
+               routed_alike=int(same.sum()), kept=int(rp.keep.sum()),
+               capacity=rp.capacity, max_abs_err=err, max_abs_ref=scale,
+               aux_card=aux_c, aux_cpu=aux_p)
+    log(f"  moe_ffn card vs cpu: {json.dumps(out)}")
+    return out
+
+
+def _moe_tiny_card_vs_cpu(seed: int) -> dict:
+    from dedloc_tpu_torch.roles.common import (
+        build_loss_fn, build_model, drop_collator_keys, synthetic_mlm_batches,
+    )
+
+    results, batch_np = {}, None
+    for device in ("cuda", "cpu"):
+        cfg, model = build_model("tiny", remat_policy="fused_ln",
+                                 attention_impl="flash", device=device,
+                                 seed=seed, moe_experts=MOE_TINY_EXPERTS,
+                                 moe_capacity_factor=MOE_CAPACITY,
+                                 moe_aux_weight=MOE_AUX_WEIGHT)
+        if batch_np is None:
+            batch_np = next(synthetic_mlm_batches(cfg, 8, 64, seed))
+        params = dict(model.named_parameters())
+        loss, metrics = build_loss_fn(model)(params,
+                                             drop_collator_keys(batch_np, device))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        flat = torch.cat([g.float().flatten().cpu() for g in grads])
+        results[device] = (float(loss.detach()), float(metrics["moe_aux"].detach()),
+                           flat)
+    (loss_c, aux_c, g_c), (loss_p, aux_p, g_p) = results["cuda"], results["cpu"]
+    rel = float((g_c - g_p).norm() / g_p.norm())
+    cos = float(torch.dot(g_c, g_p) / (g_c.norm() * g_p.norm()))
+    return dict(seed=seed, loss_card=loss_c, loss_cpu=loss_p, aux_card=aux_c,
+                aux_cpu=aux_p, loss_abs_err=abs(loss_c - loss_p),
+                grad_rel_err=rel, grad_cosine=cos, grad_elements=g_p.numel())
+
+
+def moe_model_card_vs_cpu(seed: int) -> dict:
+    """The tiny ALBERT-MoE (flash + fused_ln, bf16) from the same weights and
+    batch on the card and the CPU, for MOE_TINY_SEEDS seeds: the loss with
+    aux, and the whole gradient."""
+    runs = [_moe_tiny_card_vs_cpu(seed + i) for i in range(MOE_TINY_SEEDS)]
+    out = dict(runs=runs, max_loss_abs_err=max(r["loss_abs_err"] for r in runs),
+               max_grad_rel_err=max(r["grad_rel_err"] for r in runs))
+    log(f"  tiny ALBERT-MoE card vs cpu: {json.dumps(out)}")
+    for r in runs:
+        if not (math.isfinite(r["loss_card"]) and r["loss_abs_err"] <= MOE_LOSS_TOL):
+            fail(f"moe: tiny loss card {r['loss_card']} vs cpu {r['loss_cpu']} "
+                 f"(seed {r['seed']}, tol {MOE_LOSS_TOL})")
+        if not r["grad_rel_err"] <= MOE_GRAD_TOL:
+            fail(f"moe: tiny whole-gradient relative error {r['grad_rel_err']:.3e} "
+                 f"> {MOE_GRAD_TOL} (seed {r['seed']})")
+    return out
+
+
+def moe_routings(model, batch) -> list:
+    """One forward of ``model`` on ``batch`` (no gradient): each MoE
+    application's routing, on the CPU."""
+    from dedloc_tpu_torch.models.albert import recorded_routing
+
+    with recorded_routing(model) as seen, torch.no_grad():
+        model(batch["input_ids"], batch["attention_mask"],
+              batch["token_type_ids"], mlm_positions=batch["mlm_positions"])
+    return [r._replace(**{f: getattr(r, f).cpu() for f in
+                          ("gates", "expert", "gate", "position", "keep", "aux")})
+            for r in seen]
+
+
+def routing_summary(seen) -> dict:
+    """The share of tokens over capacity and aux, per application and in all."""
+    tokens = seen[0].expert.shape[0]
+    kept = [int(r.keep.sum()) for r in seen]
+    return dict(applications=len(seen), tokens=tokens, capacity=seen[0].capacity,
+                dropped_share=1.0 - sum(kept) / (tokens * len(seen)),
+                dropped_share_per_application=[1.0 - k / tokens for k in kept],
+                busiest_expert_tokens=[
+                    int(torch.bincount(r.expert, minlength=r.gates.shape[1]).max())
+                    for r in seen],
+                aux_per_application=[float(r.aux) for r in seen])
+
+
+def moe_routing_card_vs_cpu(cfg, seed: int, card_model, batch_np) -> dict:
+    """The full-width cell's model at init on the card and on the CPU (the
+    same weights from ``seed``, the plain versions of its kernels), one
+    forward of the same tokens: per application, the clear tokens routed
+    alike, the dropped share and aux. Also the card's routing of the first
+    sample alone, the input of ``tests/test_torch_moe_large.py``."""
+    from dedloc_tpu_torch.models.albert import AlbertForPreTraining, init_weights
+    from dedloc_tpu_torch.roles.common import drop_collator_keys
+
+    card = moe_routings(card_model, drop_collator_keys(batch_np, device="cuda"))
+    cpu_model = AlbertForPreTraining(cfg)
+    init_weights(cpu_model, torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    cpu = moe_routings(cpu_model, drop_collator_keys(batch_np, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    gc.collect()
+    agree, drop_err, aux_rel = [], [], []
+    for rc, rp in zip(card, cpu):
+        clear = _margins(rp.gates) > MOE_MARGIN
+        agree.append(float((rc.expert[clear] == rp.expert[clear]).float().mean()))
+        drop_err.append(abs(float(rc.keep.float().mean() - rp.keep.float().mean())))
+        aux_rel.append(abs(float(rc.aux) - float(rp.aux)) / float(rp.aux))
+    first = {k: v[:1] for k, v in batch_np.items()}
+    row0 = routing_summary(moe_routings(
+        card_model, drop_collator_keys(first, device="cuda")))
+    router = card_model.albert.encoder.layer.block.moe_router
+    out = dict(card=routing_summary(card), cpu=routing_summary(cpu),
+               cpu_forward_s=cpu_s, clear_routed_alike_per_application=agree,
+               dropped_share_abs_err_per_application=drop_err,
+               aux_rel_err_per_application=aux_rel, min_routed_alike=min(agree),
+               max_dropped_share_abs_err=max(drop_err), max_aux_rel_err=max(aux_rel),
+               card_first_sample=row0, router_sum=float(router.detach().double().sum()))
+    log(f"  routing at init, card vs cpu: min routed alike {min(agree):.4f}, "
+        f"max |dropped share| error {max(drop_err):.4f}, max aux relative error "
+        f"{max(aux_rel):.2e} (CPU forward {cpu_s:.1f} s)")
+    if min(agree) < MOE_ROUTE_AGREE:
+        fail(f"moe: card and CPU route {agree} of the clear tokens alike per "
+             f"application (limit {MOE_ROUTE_AGREE})")
+    if max(drop_err) > MOE_DROP_TOL:
+        fail(f"moe: dropped shares of card and CPU differ by {drop_err} "
+             f"(limit {MOE_DROP_TOL})")
+    if max(aux_rel) > MOE_AUX_REL:
+        fail(f"moe: aux of card and CPU differ by {aux_rel} relative "
+             f"(limit {MOE_AUX_REL})")
+    return out
+
+
+def moe_layer_times(seed: int) -> dict:
+    """The MoE layer at the full-width cell's shape ([12 x 512, 1024] bf16
+    tokens, 8 experts of 1024 -> 4096 -> 1024, C = 960): device time of the
+    router, the dispatch, the expert products and the combine, of the layer
+    (index dispatch) and of its dense einsum plain version, forward and
+    forward + backward; the two held against each other."""
+    from dedloc_tpu_torch.parallel import moe
+
+    h, f, t = 1024, 4096, 12 * 512
+    cfg = moe.MoEConfig(hidden_size=h, ffn_size=f, num_experts=MOE_EXPERTS,
+                        capacity_factor=MOE_CAPACITY, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    p = {k: v.cuda() for k, v in moe.init_moe_params(cfg, gen).items()}
+    x = torch.randn(t, h, generator=gen).to(torch.bfloat16).cuda()
+    r = moe.route(p["router"], x, cfg)
+    buf = moe.dispatch(x, r, cfg)
+    out = moe.experts(p, buf, cfg.dtype)
+    y_i, _ = moe.moe_ffn(p, x, cfg)
+    y_d, _ = moe.moe_ffn_dense(p, x, cfg)
+    scale = float(y_d.float().abs().max())
+    err = float((y_i.float() - y_d.float()).abs().max())
+    if not err <= 1e-2 * scale:
+        fail(f"moe: index dispatch vs dense plain version {err:.3e} (max |ref| "
+             f"{scale:.3e}, tol 1e-2 of it)")
+    c = r.capacity
+    ms = dict(router=cuda_ms(lambda: moe.route(p["router"], x, cfg)),
+              dispatch=cuda_ms(lambda: moe.dispatch(x, r, cfg)),
+              experts=cuda_ms(lambda: moe.experts(p, buf, cfg.dtype)),
+              combine=cuda_ms(lambda: moe.combine(out, r, cfg)),
+              layer=cuda_ms(lambda: moe.moe_ffn(p, x, cfg)),
+              plain=cuda_ms(lambda: moe.moe_ffn_dense(p, x, cfg), reps=10, calls=2))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    xg = x.clone().requires_grad_(True)
+    dy = torch.randn(t, h, generator=gen).to(torch.bfloat16).cuda()
+
+    def fwd_bwd(fn):
+        y, aux = fn(leaves, xg, cfg)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+
+    ms["layer_fwd_bwd"] = event_ms(lambda: fwd_bwd(moe.moe_ffn), reps=5)
+    ms["plain_fwd_bwd"] = event_ms(lambda: fwd_bwd(moe.moe_ffn_dense), reps=5)
+    expert_flops = 2 * 2 * MOE_EXPERTS * c * h * f
+    n_bytes = (2 * t * h * 2 + 2 * MOE_EXPERTS * h * f * 2)  # x, y; wi, wo bf16
+    lb = bound(n_bytes, tensor_cores=expert_flops / BF16_FLOPS * 1e3,
+               fp32=2 * t * h * MOE_EXPERTS / FP32_FLOPS * 1e3)
+    out = dict(tokens=t, capacity=c, ms=ms, max_abs_err_vs_plain=err,
+               max_abs_ref=scale, expert_tflops=expert_flops / (ms["experts"] * 1e9),
+               bound_ms=lb["bound_ms"], bound_by=lb["bound_by"],
+               plain_extra_tflop=2 * 2 * t * MOE_EXPERTS * c * h / 1e12)
+    log(f"  MoE layer [{t}, {h}] x {MOE_EXPERTS} experts: {json.dumps(out)}")
+    return out
+
+
+def moe_full_width(seed: int) -> dict:
+    """ALBERT-large with 8 experts at 12 x 512, accumulation 2, remat
+    fused_ln, flash, LAMB: the routing at init, 3 steps with the launch
+    counters checked, one traced step, the routing after."""
+    from dedloc_tpu_torch.models.albert import AlbertConfig
+    from dedloc_tpu_torch.roles.common import drop_collator_keys, synthetic_mlm_batches
+
+    cfg = AlbertConfig.large(remat_policy="fused_ln", fused_ln=True,
+                             attention_impl="flash", moe_experts=MOE_EXPERTS,
+                             moe_capacity_factor=MOE_CAPACITY,
+                             moe_aux_weight=MOE_AUX_WEIGHT)
+    model = _large(cfg, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[moe] ALBERT-large, {MOE_EXPERTS} experts: {n_params} parameters "
+        f"({n_params * 2} bytes on the fp16 wire)")
+    probe_np = next(synthetic_mlm_batches(cfg, 12, 512, seed + 7))
+    probe = drop_collator_keys(probe_np, device="cuda")
+    witness = moe_routing_card_vs_cpu(cfg, seed, model, probe_np)
+    at_init = witness["card"]
+    log(f"  routing at init: {json.dumps({k: v for k, v in at_init.items() if 'per' not in k})}")
+    run = run_path("moe", cfg, model, 12, 512, seed, COLLAB_EXPECTED,
+                   trace="moe_step_trace.json")
+    after = routing_summary(moe_routings(model, probe))
+    log(f"  routing after {run['steps'] + 1} steps: "
+        f"{json.dumps({k: v for k, v in after.items() if 'per' not in k})}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run, parameters=n_params, wire_bytes_fp16=2 * n_params,
+                routing_at_init=at_init, routing_after=after,
+                routing_card_vs_cpu={k: v for k, v in witness.items()
+                                     if k not in ("card",)})
+
+
+def _spawn(cmd, work: str, name: str, env=None):
+    logf = open(os.path.join(work, f"{name}.log"), "w")
+    proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, logf
+
+
+def _tail(work: str, name: str) -> str:
+    with open(os.path.join(work, f"{name}.log")) as f:
+        return f.read()[-3000:]
+
+
+def moe_deployment(seed: int, work: str) -> dict:
+    """The reference's deployment through the CLIs: a coordinator and an aux
+    peer on the CPU (CUDA hidden: host roles hold no tensor on a device),
+    two tiny MoE trainers on the card (flash + fused_ln). The coordinator
+    comes up first, then the aux (bootstrapping from it); then the trainers,
+    started together, each bootstrapping from the coordinator and the other
+    trainer (so neither steps alone). Stopped
+    (SIGINT) once both trainers took MOE_CLI_STEPS averaged steps, the aux
+    joined a round and the coordinator saw both trainers."""
+    # a port is taken as late as it can be: a port freed for a child to bind
+    # may meanwhile go to a socket of a peer already running. The aux needs
+    # no known address and binds its own
+    ports = {"coordinator": _free_port()}
+    addr = lambda k: f"127.0.0.1:{ports[k]}"
+    common = ["--dht.experiment_prefix", "chip-smoke-moe",
+              "--dht.listen_host", "127.0.0.1",
+              "--optimizer.target_batch_size", "32",
+              "--averager.compression", "float16",
+              "--averager.min_refresh_period", "0.2",
+              "--averager.default_refresh_period", "0.5"]
+    host_env = {k: v for k, v in os.environ.items() if k != "DEDLOC_FORCE_CPU"}
+    host_env["CUDA_VISIBLE_DEVICES"] = ""
+    procs, logs = {}, []
+    coord_log = os.path.join(work, "coordinator_metrics.jsonl")
+    t_start = time.perf_counter()
+    try:
+        proc, f = _spawn([sys.executable, "-m", "dedloc_tpu_torch.roles.coordinator",
+                          *common, "--dht.listen_port", str(ports["coordinator"]),
+                          "--coordinator.refresh_period", "0.5",
+                          "--coordinator.metrics_log_path", coord_log,
+                          "--coordinator.incident_log_path",
+                          os.path.join(work, "coordinator_incidents.jsonl"),
+                          "--coordinator.ledger_log_path",
+                          os.path.join(work, "coordinator_ledger.jsonl")],
+                         work, "coordinator", host_env)
+        procs["coordinator"] = proc
+        logs.append(f)
+        # the DHT root answers before the others bootstrap from it, and the
+        # aux is in the DHT before the trainers start their rounds
+        up = time.time() + 60
+        while "listening on" not in _tail(work, "coordinator"):
+            if proc.poll() is not None or time.time() > up:
+                fail(f"moe: the coordinator did not come up:\n"
+                     f"{_tail(work, 'coordinator')}")
+            time.sleep(0.2)
+        proc, f = _spawn([sys.executable, "-m", "dedloc_tpu_torch.roles.aux",
+                          *common, *MOE_TINY_FLAGS,
+                          "--dht.initial_peers", addr("coordinator")],
+                         work, "aux", host_env)
+        procs["aux"] = proc
+        logs.append(f)
+        up = time.time() + 60
+        while "aux peer DHT listening" not in _tail(work, "aux"):
+            if procs["aux"].poll() is not None or time.time() > up:
+                fail(f"moe: the aux peer did not come up:\n{_tail(work, 'aux')}")
+            time.sleep(0.2)
+        ports.update(A=_free_port(), B=_free_port())
+        for peer, other in (("A", "B"), ("B", "A")):
+            pdir = os.path.join(work, peer)
+            os.makedirs(pdir)
+            proc, f = _spawn([
+                sys.executable, "-m", "dedloc_tpu_torch.roles.trainer", *common,
+                *MOE_TINY_FLAGS,
+                "--training.remat_policy", "fused_ln",
+                "--training.attention_impl", "flash",
+                "--training.per_device_batch_size", "8",
+                "--training.seq_length", "64",
+                "--training.gradient_accumulation_steps", "2",
+                "--training.warmup_steps", "0", "--training.seed", str(seed),
+                "--training.max_local_steps", "400",
+                "--training.save_steps", "1", "--training.save_total_limit", "0",
+                "--training.output_dir", pdir,
+                "--training.train_log_path", os.path.join(pdir, "train.jsonl"),
+                "--optimizer.device_flat", "true", "--optimizer.flat_apply", "true",
+                "--checkpoint.cache_dir", "none",
+                "--dht.listen_port", str(ports[peer]),
+                "--dht.initial_peers", addr("coordinator"), addr(other)],
+                work, peer)
+            procs[peer] = proc
+            logs.append(f)
+
+        def progress():
+            steps = {p: [r for r in _jsonl(os.path.join(work, p, "train.jsonl"))
+                         if r["group_size"] >= 2] for p in ("A", "B")}
+            with open(os.path.join(work, "aux.log")) as fh:
+                joined = len(re.findall(r"joined averaging round", fh.read()))
+            alive = max((r.get("alive_peers", 0) for r in _jsonl(coord_log)),
+                        default=0)
+            return steps, joined, alive
+
+        deadline = time.time() + MOE_CLI_DEADLINE_S
+        while time.time() < deadline:
+            steps, joined, alive = progress()
+            if (all(len(v) >= MOE_CLI_STEPS for v in steps.values())
+                    and joined >= 1 and alive >= 2):
+                break
+            for name, pr in procs.items():
+                if pr.poll() is not None:
+                    fail(f"moe: {name} exited early ({pr.returncode}):\n"
+                         f"{_tail(work, name)}")
+            time.sleep(1.0)
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.send_signal(signal.SIGINT)
+        for pr in procs.values():
+            try:
+                pr.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+        for f in logs:
+            f.close()
+    wall_s = time.perf_counter() - t_start
+    steps, joined, alive = progress()
+    if not all(len(v) >= MOE_CLI_STEPS for v in steps.values()):
+        fail(f"moe: averaged steps {({p: [r['step'] for r in v] for p, v in steps.items()})} "
+             f"(want {MOE_CLI_STEPS} each); A:\n{_tail(work, 'A')}")
+    if joined < 1:
+        fail(f"moe: the aux joined no round:\n{_tail(work, 'aux')}")
+    if alive < 2:
+        fail(f"moe: the coordinator saw {alive} alive peers (want 2):\n"
+             f"{_tail(work, 'coordinator')}")
+    for peer in ("A", "B"):
+        text = _tail(work, peer)
+        for marker in FALLBACKS:
+            if marker in text:
+                fail(f"moe: trainer {peer} fell back: {marker!r}")
+    records = {p: _jsonl(os.path.join(work, p, "train.jsonl")) for p in ("A", "B")}
+    for p, rs in records.items():
+        if not all(math.isfinite(r["loss"]) for r in rs):
+            fail(f"moe: trainer {p} non-finite loss")
+        if any(r["apply"] != "flat" for r in steps[p]):
+            fail(f"moe: trainer {p} averaged steps not through the flat apply")
+    common_steps = sorted({r["step"] for r in steps["A"]}
+                          & {r["step"] for r in steps["B"]})
+    hashes = {}
+    for step in common_steps:
+        paths = [os.path.join(work, p, f"checkpoint-{step}") for p in ("A", "B")]
+        if all(os.path.isdir(x) for x in paths):
+            hashes[step] = [_state_hash(x) for x in paths]
+    if not hashes:
+        fail(f"moe: no averaged step checkpointed by both trainers {common_steps}")
+    for step, (a, b) in hashes.items():
+        if a != b:
+            fail(f"moe: the trainers' states differ after round {step}: {a} {b}")
+    last = max(hashes)
+    log(f"  trainers bitwise equal after rounds {sorted(hashes)}; aux joined "
+        f"{joined}; coordinator saw {alive} alive peers")
+    return dict(
+        wall_s=wall_s, averaged_steps={p: [r["step"] for r in v] for p, v in steps.items()},
+        group_sizes={p: [r["group_size"] for r in v] for p, v in steps.items()},
+        losses={p: [r["loss"] for r in rs] for p, rs in records.items()},
+        kernel_launches={p: rs[-1]["kernel_launches"] for p, rs in records.items()},
+        boundary_ms={p: [r["boundary_ms"] for r in rs] for p, rs in records.items()},
+        aux_rounds=joined, coordinator_alive_peers=alive,
+        bitwise_after_rounds=sorted(hashes), state_sha256=hashes[last][0],
+        checkpoint=os.path.join(work, "A", f"checkpoint-{last}"))
+
+
+def moe_serving(seed: int, checkpoint: str) -> dict:
+    """The trainers' checkpoint served through the swarm: two ``ExpertHost``s
+    (experts 0-1, 2-3) run ``ffn_compute_fn`` on its moe_wi / moe_wo in
+    NumPy, a ``GatewayService`` holds its moe_router, all on loopback DHTs
+    in this process (a serving peer needs no card: that is the design); a
+    client's ``gateway.infer`` answers MOE_SERVE_TOKENS seeded bf16 tokens.
+    The answer is held against the port's ``moe_ffn`` on the card (bf16
+    experts, as the model runs them) on the tokens the layer keeps within
+    capacity and routes with a clear margin."""
+    import numpy as np
+
+    from dedloc_tpu_torch.core.serialization import (
+        CompressionType, deserialize_array, serialize_array,
+    )
+    from dedloc_tpu_torch.dht import DHT
+    from dedloc_tpu_torch.parallel import moe
+    from dedloc_tpu_torch.roles.gateway import GatewayService
+    from dedloc_tpu_torch.serving import ExpertHost, RouterPolicy, ffn_compute_fn
+    from dedloc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    named, _meta = load_checkpoint(checkpoint)
+    block = "[0]['albert']['encoder']['layer']['block']"
+    w = {k: np.asarray(named[f"{block}['moe_{k}']"], np.float32)
+         for k in ("router", "wi", "wo")}
+    e, h, f = w["wi"].shape
+    cfg = moe.MoEConfig(hidden_size=h, ffn_size=f, num_experts=e,
+                        capacity_factor=MOE_CAPACITY, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(MOE_SERVE_TOKENS, h, generator=gen).to(torch.bfloat16)
+    x_np = x.float().numpy()
+    root = DHT(start=True, listen_host="127.0.0.1")
+    peers = [DHT(start=True, listen_host="127.0.0.1",
+                 initial_peers=[root.get_visible_address()]) for _ in range(4)]
+    hosts, gateway, client = peers[:2], peers[2], peers[3]
+    compute = ffn_compute_fn(w)
+    half = e // 2
+
+    async def attach_host(node, experts):
+        return await ExpertHost(node, "chip-smoke-serve", experts, 1,
+                                compute_fn=compute).announce()
+
+    async def attach_gateway(node):
+        service = GatewayService(node, "chip-smoke-serve",
+                                 policy=RouterPolicy(deadline_s=10.0,
+                                                     attempt_timeout_s=5.0),
+                                 router_params=w["router"], version=1)
+        await service.router.refresh(force=True)
+        return service.router.known_experts()
+
+    def infer(i):
+        return client.run_coroutine(lambda node: node.client.call(
+            gateway.endpoint, "gateway.infer",
+            {"tokens": serialize_array(x_np, CompressionType.NONE),
+             "request_id": f"req-{i}"}, timeout=30.0))
+
+    try:
+        for d, experts in zip(hosts, (list(range(half)), list(range(half, e)))):
+            if not d.run_coroutine(lambda node, ex=experts: attach_host(node, ex)):
+                fail("moe: an expert host's announce failed")
+        known = gateway.run_coroutine(attach_gateway)
+        if sorted(known) != list(range(e)):
+            fail(f"moe: the gateway knows experts {known}")
+        reply = infer(0)
+        ms = []
+        for i in range(1, 11):
+            t0 = time.perf_counter()
+            infer(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for d in peers + [root]:
+            d.shutdown()
+    y = torch.from_numpy(deserialize_array(reply["data"]))
+    p = {"router": torch.from_numpy(w["router"]).cuda(),
+         "wi": torch.from_numpy(w["wi"]).cuda().to(torch.bfloat16),
+         "wo": torch.from_numpy(w["wo"]).cuda().to(torch.bfloat16)}
+    ref, _aux = moe.moe_ffn(p, x.cuda(), cfg)
+    ref = ref.float().cpu()
+    r = moe.route(p["router"], x.cuda(), cfg)
+    use = (r.keep & (_margins(r.gates) > MOE_MARGIN)).cpu()
+    scale = float(ref.abs().max())
+    err = check_close("gateway.infer vs moe_ffn on the card (kept tokens)",
+                      y[use], ref[use], MOE_SERVE_TOL * scale, 0.0)
+    if reply["served"] != MOE_SERVE_TOKENS:
+        fail(f"moe: the gateway served {reply['served']} of {MOE_SERVE_TOKENS}")
+    out = dict(tokens=MOE_SERVE_TOKENS, experts=e, compared=int(use.sum()),
+               kept=int(r.keep.sum()), max_abs_err=err, max_abs_ref=scale,
+               served=reply["served"], fall_through=reply["fall_through"],
+               ms_per_request=statistics.median(ms), ms_requests=ms)
+    log(f"  serving: {json.dumps(out)}")
+    return out
+
+
+def phase_moe(seed: int) -> dict:
+    """The Switch-MoE ALBERT peer: card vs CPU at tiny widths, the full-width
+    cell with its launches, the MoE layer's device time, the deployment
+    through the CLIs and the gateway serving its experts."""
+    from dedloc_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    log("[moe] moe_ffn and tiny ALBERT-MoE: card vs CPU")
+    ffn = moe_ffn_card_vs_cpu(seed)
+    tiny = moe_model_card_vs_cpu(seed)
+    full = moe_full_width(seed)
+    layer = moe_layer_times(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="moe-", dir=_build.BUILD_DIR)
+    try:
+        log("[moe] coordinator + 2 MoE trainers + aux through the CLIs")
+        deploy = moe_deployment(seed, work)
+        log("[moe] the trainers' experts served through a gateway")
+        serve = moe_serving(seed, deploy.pop("checkpoint"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(ffn_card_vs_cpu=ffn, tiny_card_vs_cpu=tiny, full_width=full,
+                layer=layer, deployment=deploy, serving=serve,
+                phase_s=time.perf_counter() - t0)
+
+
 def _kind(name: str) -> str:
     if "flash_" in name or "_ln_" in name:
         return "port kernels"
@@ -2173,6 +2789,7 @@ def main(argv=None) -> int:
     collab = phase_collab(args.seed)
     downstream = phase_downstream(args.seed)
     swav = phase_swav(args.seed)
+    moe = phase_moe(args.seed)
 
     rows = []
     for k in kernels:
@@ -2199,6 +2816,10 @@ def main(argv=None) -> int:
                 downstream["trainer"]["kernel_launches"][name]
             rows[-1]["launches_downstream_eval"] = \
                 downstream["eval"]["launches"][name]
+            # the Switch-MoE cell's run (3 steps) and its two CLI trainers
+            rows[-1]["launches_moe"] = moe["full_width"]["launches"][name]
+            rows[-1]["launches_moe_trainers"] = sum(
+                v[name] for v in moe["deployment"]["kernel_launches"].values())
         if rows[-1]["route"] == "cuda":
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with
@@ -2212,6 +2833,7 @@ def main(argv=None) -> int:
     print(json.dumps({"collab": collab}))
     print(json.dumps({"downstream": downstream}))
     print(json.dumps({"swav": swav}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"script_s": time.perf_counter() - script_t0}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,15 @@ follow it:
   generator on the tensor's device seeded by one draw of it, so a
   rematerialised block redraws the masks its forward drew.
 
+- with ``moe_experts > 0`` the block's FFN is the Switch-routed expert FFN
+  of ``parallel/moe.py`` (one expert set shared by the applications, as the
+  block is). The encoder writes the aux loss summed over the applications
+  into the ``losses`` dict its caller passes down (flax's ``"losses"``
+  collection); each application returns its own beside ``hidden``, the one
+  way out of its checkpoint.
+
 Not ported yet (they raise ``NotImplementedError``): ``ring`` attention,
-``pipe_mesh`` and ``moe_experts > 0``.
+``pipe_mesh`` and ``moe_mesh`` (experts sharded over devices).
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from dedloc_tpu_torch.ops import flash_attention as _flash
 from dedloc_tpu_torch.ops import fused_ln as _fused_ln
 from dedloc_tpu_torch.ops.flash_attention import flash_attention
 from dedloc_tpu_torch.ops.fused_ln import ln_residual, ln_residual_reference
+from dedloc_tpu_torch.parallel import moe as _moe
 from dedloc_tpu_torch.parallel.ring_attention import blockwise_attention
 from dedloc_tpu_torch.utils.device import divide
 
@@ -81,9 +89,16 @@ class AlbertConfig:
     # the KV block of blockwise attention (JAX also tiles its flash kernel
     # by it; the CUDA kernels tile by 64 at any length)
     attention_block_size: int = 512
-    # later slices (set here, they raise): pipeline stages, Switch-MoE FFN
+    # later slices (set here, they raise): pipeline stages
     pipe_mesh: Any = None
+    # Switch-MoE FFN variant (--training.moe_experts, parallel/moe.py): the
+    # dense gelu FFN becomes a top-1-routed expert FFN; the load-balancing
+    # aux loss is added at moe_aux_weight. moe_mesh (experts sharded over
+    # devices) comes with the parallel-axes slice and raises
     moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_mesh: Any = None
 
     @staticmethod
     def named(model_size: str):
@@ -191,8 +206,8 @@ def _check_supported(cfg: AlbertConfig) -> None:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.pipe_mesh is not None:
         later.append("pipe_mesh")
-    if cfg.moe_experts > 0:
-        later.append("moe_experts > 0")
+    if cfg.moe_mesh is not None:
+        later.append("moe_mesh")
     if cfg.remat:
         remat_policy_object(cfg.remat_policy)  # unknown names raise here
     if later:
@@ -346,15 +361,26 @@ class AlbertSelfAttention(nn.Module):
 
 
 class AlbertLayer(nn.Module):
-    """One shared transformer block (attention + tanh-GELU FFN, post-LN)."""
+    """One shared transformer block (attention + tanh-GELU FFN, post-LN).
+
+    Returns ``(hidden, aux)``: ``aux`` is the Switch load-balancing loss
+    when ``cfg.moe_experts`` routes the FFN through experts, else None."""
 
     def __init__(self, cfg: AlbertConfig):
         super().__init__()
         self.cfg = cfg
         self.attention = AlbertSelfAttention(cfg)
-        self.ffn = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
-        self.ffn_output = Dense(cfg.intermediate_size, cfg.hidden_size,
-                                cfg.dtype)
+        h, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts
+        if e > 0:
+            # the JAX layer's leaves (fp32 masters; the experts are cast to
+            # cfg.dtype at use, the router stays fp32) in place of ffn and
+            # ffn_output
+            self.moe_router = nn.Parameter(torch.zeros(h, e))
+            self.moe_wi = nn.Parameter(torch.zeros(e, h, f))
+            self.moe_wo = nn.Parameter(torch.zeros(e, f, h))
+        else:
+            self.ffn = Dense(h, f, cfg.dtype)
+            self.ffn_output = Dense(f, h, cfg.dtype)
         self.layernorm = AddLayerNorm(cfg)
 
     def forward(self, hidden, kv_bias, seed: Optional[int] = None):
@@ -363,14 +389,64 @@ class AlbertLayer(nn.Module):
         redraws the masks of its forward."""
         generator = _site_generator(seed, hidden.device)
         hidden = self.attention(hidden, kv_bias, generator)
-        # named for the fused_ln* policies: the up-projection (gelu's input)
-        # and the gelu output (saved by fused_ln_gelu only)
-        ffn = self.ffn(hidden, "ffn_up")
-        with checkpoint_name("ffn_gelu"):
-            ffn = F.gelu(ffn, approximate="tanh")
-        ffn = dropout(self.ffn_output(ffn), self.cfg.hidden_dropout_prob,
-                      generator)
-        return self.layernorm(ffn, hidden)
+        aux = None
+        if self.cfg.moe_experts > 0:
+            # no named outputs: the fused_ln* policies recompute the branch
+            # in the backward, as under JAX
+            ffn, aux = self._moe_ffn(hidden)
+        else:
+            # named for the fused_ln* policies: the up-projection (gelu's
+            # input) and the gelu output (saved by fused_ln_gelu only)
+            ffn = self.ffn(hidden, "ffn_up")
+            with checkpoint_name("ffn_gelu"):
+                ffn = F.gelu(ffn, approximate="tanh")
+            ffn = self.ffn_output(ffn)
+        ffn = dropout(ffn, self.cfg.hidden_dropout_prob, generator)
+        return self.layernorm(ffn, hidden), aux
+
+    def moe_config(self) -> _moe.MoEConfig:
+        cfg = self.cfg
+        return _moe.MoEConfig(
+            hidden_size=cfg.hidden_size, ffn_size=cfg.intermediate_size,
+            num_experts=cfg.moe_experts,
+            capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
+        )
+
+    def _moe_ffn(self, hidden):
+        """The Switch-routed FFN over the block's tokens in batch-major
+        order (``parallel/moe.py``): bf16 experts like the dense FFN, the
+        router's product in fp32."""
+        cfg = self.cfg
+        b, s, h = hidden.shape
+        params = {"router": self.moe_router,
+                  "wi": self.moe_wi.to(cfg.dtype),
+                  "wo": self.moe_wo.to(cfg.dtype)}
+        y, aux = _moe.moe_ffn(params, hidden.reshape(b * s, h), self.moe_config())
+        return y.reshape(b, s, h).to(cfg.dtype), aux
+
+
+@contextlib.contextmanager
+def recorded_routing(model: nn.Module):
+    """Within the scope, each application of the MoE block of ``model``
+    appends its routing (``parallel/moe.py``'s ``Routing``, detached) to the
+    list this yields: a forward hook on the block's attention, whose output
+    is the expert FFN's input, routes those tokens again. Run the model
+    without a gradient: a rematerialised backward would record again."""
+    block = next(m for m in model.modules() if isinstance(m, AlbertLayer))
+    if block.cfg.moe_experts <= 0:
+        raise ValueError("recorded_routing needs a model with moe_experts > 0")
+    mcfg, seen = block.moe_config(), []
+
+    def hook(_module, _args, hidden):
+        with torch.no_grad():
+            seen.append(_moe.route(block.moe_router,
+                                   hidden.reshape(-1, hidden.shape[-1]), mcfg))
+
+    handle = block.attention.register_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 class _SharedLayer(nn.Module):
@@ -393,20 +469,28 @@ class AlbertEncoder(nn.Module):
         self.cfg = cfg
         self.layer = _SharedLayer(cfg)
 
-    def forward(self, hidden, kv_bias, key: Optional[torch.Generator] = None):
-        """``key``: the CPU dropout key (None: no dropout); each
-        application draws its own seed from it."""
+    def forward(self, hidden, kv_bias, key: Optional[torch.Generator] = None,
+                losses: Optional[dict] = None):
+        """``key``: the CPU dropout key (None: no dropout); each application
+        draws its own seed from it. With experts, ``losses["moe_aux"]``
+        receives the aux loss summed over the applications."""
         block = self.layer.block
         if self.cfg.remat and torch.is_grad_enabled():
             contexts = functools.partial(
                 create_selective_checkpoint_contexts,
                 remat_policy_object(self.cfg.remat_policy))
-            for _ in range(self.cfg.num_hidden_layers):
-                hidden = checkpoint(block, hidden, kv_bias, _draw_seed(key),
-                                    use_reentrant=False, context_fn=contexts)
-            return hidden
+            apply = lambda h: checkpoint(block, h, kv_bias, _draw_seed(key),
+                                         use_reentrant=False,
+                                         context_fn=contexts)
+        else:
+            apply = lambda h: block(h, kv_bias, _draw_seed(key))
+        auxes = []
         for _ in range(self.cfg.num_hidden_layers):
-            hidden = block(hidden, kv_bias, _draw_seed(key))
+            hidden, aux = apply(hidden)
+            if aux is not None:
+                auxes.append(aux)
+        if auxes and losses is not None:
+            losses["moe_aux"] = torch.stack(auxes).sum()
         return hidden
 
 
@@ -426,9 +510,12 @@ class AlbertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                losses: Optional[dict] = None):
         """``generator``: the CPU dropout key, required in training mode
-        (``deterministic=False``) when a dropout rate is nonzero."""
+        (``deterministic=False``) when a dropout rate is nonzero. With
+        experts, the aux loss is written to ``losses["moe_aux"]`` when a
+        dict is given (flax's ``"losses"`` collection)."""
         cfg = self.cfg
         b, s = input_ids.shape
         if (cfg.attention_impl in ("flash", "blockwise")
@@ -453,7 +540,7 @@ class AlbertModel(nn.Module):
                       _site_generator(_draw_seed(key), emb.device))
         hidden = self.embedding_projection(emb)  # factorized: E -> hidden
         kv_bias = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
-        hidden = self.encoder(hidden, kv_bias, key)
+        hidden = self.encoder(hidden, kv_bias, key, losses)
         pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled
 
@@ -475,12 +562,14 @@ class AlbertForPreTraining(nn.Module):
                 deterministic: bool = True,
                 mlm_positions: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
+                losses: Optional[dict] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``mlm_positions`` [B, P]: the MLM head runs only on those gathered
-        positions (logits [B, P, vocab]); None covers every position."""
+        positions (logits [B, P, vocab]); None covers every position.
+        ``losses``: a dict that receives ``moe_aux`` with experts."""
         cfg = self.cfg
         hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
-                                     deterministic, generator)
+                                     deterministic, generator, losses)
         if mlm_positions is not None:
             idx = mlm_positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
             hidden = torch.gather(hidden, 1, idx)
@@ -536,9 +625,10 @@ class AlbertForSequenceClassification(_ClassificationHead):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The JAX initialisers: normal(initializer_range) for dense kernels and
-    embeddings, zeros for biases, ones/zeros for LayerNorm. Draws on the
-    given CPU generator, so a seed gives the same weights on any device."""
+    """The JAX initialisers: normal(initializer_range) for dense kernels,
+    embeddings and the MoE router and expert stacks, zeros for biases,
+    ones/zeros for LayerNorm. Draws on the given CPU generator, so a seed
+    gives the same weights on any device."""
     std = model.cfg.initializer_range
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Embedding)):
@@ -550,6 +640,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(module, (LayerNorm, AddLayerNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, AlbertLayer) and module.cfg.moe_experts > 0:
+            for p in (module.moe_router, module.moe_wi, module.moe_wo):
+                p.copy_(torch.empty(p.shape).normal_(0.0, std,
+                                                     generator=generator))
     if isinstance(model, AlbertForPreTraining):
         model.mlm_bias.zero_()
     return model

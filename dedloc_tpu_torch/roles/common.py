@@ -52,10 +52,14 @@ def build_model(
     vocab_size: int = 0,
     device: DeviceLike = None,
     seed: int = 0,
+    moe_experts: int = 0,
+    moe_capacity_factor: float = 0.0,
+    moe_aux_weight: float = -1.0,
 ) -> Tuple[AlbertConfig, AlbertForPreTraining]:
     """(config, model with random weights drawn from ``seed``) on ``device``
-    (the card by default). The JAX builder's mesh and MoE arguments come
-    with the slices that port them."""
+    (the card by default; ``"meta"`` gives shapes without storage). The MoE
+    overrides apply as in the JAX builder; its mesh arguments come with the
+    parallel-axes slice."""
     dev = resolve_device(device)
     overrides = {}
     if remat_policy:
@@ -65,7 +69,16 @@ def build_model(
         overrides["attention_impl"] = attention_impl
     if vocab_size:
         overrides["vocab_size"] = vocab_size
+    if moe_experts:
+        overrides["moe_experts"] = moe_experts
+        if moe_capacity_factor > 0:
+            overrides["moe_capacity_factor"] = moe_capacity_factor
+        if moe_aux_weight >= 0:
+            overrides["moe_aux_weight"] = moe_aux_weight
     cfg = AlbertConfig.named(model_size)(**overrides)
+    if dev.type == "meta":
+        with torch.device("meta"):
+            return cfg, AlbertForPreTraining(cfg)
     model = AlbertForPreTraining(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return cfg, model.to(dev)
@@ -228,23 +241,34 @@ def build_loss_fn(model: AlbertForPreTraining) -> Callable:
     """``loss_fn(params, batch, rng) -> (loss, metrics)``, the model applied
     with ``params`` (a name -> tensor dict). Gathered masked-position loss
     when the batch carries ``mlm_positions``; dense per-position otherwise.
-    ``rng`` is accepted for the JAX signature: the recipe has no dropout."""
+    With an MoE config the Switch load-balancing aux loss is added at
+    ``cfg.moe_aux_weight`` and reported as ``moe_aux``. ``rng`` is accepted
+    for the JAX signature: the recipe has no dropout."""
+    moe = model.cfg.moe_experts > 0
 
     def loss_fn(params, batch, rng: Optional[torch.Generator] = None):
         gathered = "mlm_positions" in batch
+        losses = {}
         mlm_logits, sop_logits = functional_call(
             model, params,
             (batch["input_ids"], batch["attention_mask"], batch["token_type_ids"]),
-            {"mlm_positions": batch["mlm_positions"] if gathered else None},
+            {"mlm_positions": batch["mlm_positions"] if gathered else None,
+             "losses": losses},
         )
         if gathered:
-            return albert_pretraining_loss_gathered(
+            loss, metrics = albert_pretraining_loss_gathered(
                 mlm_logits, sop_logits, batch["mlm_label_ids"],
                 batch["mlm_weights"], batch["sop_labels"],
             )
-        return albert_pretraining_loss(
-            mlm_logits, sop_logits, batch["mlm_labels"], batch["sop_labels"]
-        )
+        else:
+            loss, metrics = albert_pretraining_loss(
+                mlm_logits, sop_logits, batch["mlm_labels"], batch["sop_labels"]
+            )
+        if moe:
+            aux = losses["moe_aux"]
+            loss = loss + model.cfg.moe_aux_weight * aux
+            metrics = dict(metrics, moe_aux=aux)
+        return loss, metrics
 
     return loss_fn
 

@@ -10,9 +10,12 @@ publish signed metrics.
 It runs on the card unless ``DEDLOC_FORCE_CPU=1`` asks for the CPU. The
 batches are the JAX trainer's for the same inputs and peer key: synthetic,
 tokenized shards on disk (``--training.dataset_path``) or a streamed,
-tokenized text mix (``--training.streaming_files``). One device per peer:
-``mesh_*_devices > 1``, MoE, ZeRO and ring attention come with the
-parallel-axes slice and raise ``ValueError`` naming it.
+tokenized text mix (``--training.streaming_files``). The Switch-MoE
+variant runs with ``--training.moe_experts`` (and
+``--training.moe_capacity_factor``, ``--training.moe_aux_weight``). One
+device per peer: ``mesh_*_devices > 1`` (the expert axis too), ZeRO and
+ring attention come with the parallel-axes slice and raise ``ValueError``
+naming it.
 
     python -m dedloc_tpu_torch.roles.trainer --dht.experiment_prefix run \\
         --optimizer.target_batch_size 48 --training.per_device_batch_size 12
@@ -72,11 +75,11 @@ def _refuse_later_slices(args: CollaborationArguments) -> None:
     if (tr.mesh_devices > 1 or tr.mesh_seq_devices > 1
             or tr.mesh_model_devices > 1 or tr.mesh_pipe_devices > 1
             or tr.mesh_expert_devices > 1 or tr.zero_sharding
-            or tr.moe_experts or tr.attention_impl == "ring"):
+            or tr.attention_impl == "ring"):
         raise ValueError(
             "the port's trainer runs on one device: mesh_*_devices, "
-            "zero_sharding, moe_experts and attention_impl='ring' come with "
-            "the parallel-axes slice (ROADMAP, queue A)")
+            "zero_sharding and attention_impl='ring' come with the "
+            "parallel-axes slice (ROADMAP, queue A)")
 
 
 def run_trainer(args: CollaborationArguments) -> TrainState:
@@ -87,7 +90,10 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     authorizer, authority_public_key = build_authorizer(args)
     tr = args.training
     cfg, model = build_model(tr.model_size, tr.remat_policy, tr.attention_impl,
-                             tr.vocab_size, device=device, seed=tr.seed)
+                             tr.vocab_size, device=device, seed=tr.seed,
+                             moe_experts=tr.moe_experts,
+                             moe_capacity_factor=tr.moe_capacity_factor,
+                             moe_aux_weight=tr.moe_aux_weight)
     tx = build_optimizer(args)
     dht, public_key = build_dht(
         args,

@@ -156,7 +156,8 @@ def test_convert_accepts_slash_joined_names(fp32_case):
 
 
 def test_unported_features_raise():
-    for overrides in (dict(attention_impl="ring"), dict(moe_experts=2),
+    for overrides in (dict(attention_impl="ring"),
+                      dict(moe_experts=2, moe_mesh=object()),
                       dict(pipe_mesh=object())):
         with pytest.raises(NotImplementedError):
             AlbertForPreTraining(AlbertConfig.tiny(**overrides))

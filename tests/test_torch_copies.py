@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's framework-free modules: each is
 its source with only the package name rewritten in import statements and
-dotted strings, every ``dedloc_tpu_torch`` import inside the port resolves,
-and the DHT record schemas equal the reference's field for field."""
+dotted strings (an adapted copy also differs by the lines its table names),
+every ``dedloc_tpu_torch`` import inside the port resolves, and the DHT
+record schemas equal the reference's field for field."""
 import ast
 import importlib
 import importlib.util
@@ -30,16 +31,41 @@ COPIES = (
     + [f"utils/{n}.py" for n in ("aio", "logging", "stats", "checkpoint")]
     + [f"data/{n}.py" for n in ("__init__", "mlm", "streaming", "tokenizer",
                                 "corpus", "prepare", "disk", "multicrop")]
-    + ["finetune/metrics.py", "native/__init__.py", "serving/records.py",
-       "join.py"]
+    + ["finetune/metrics.py", "native/__init__.py", "join.py"]
+    + [f"serving/{n}.py" for n in ("__init__", "admission", "host", "records",
+                                   "router")]
+    + ["utils/hub.py", "utils/jsonl.py", "roles/__init__.py"]
+    + [f"simulator/{n}.py" for n in ("__init__", "engine", "network", "swarm",
+                                     "scenarios")]
+    + [f"twin/{n}.py" for n in ("__init__", "fit", "replay")]
 )
 # copies that extend their source: the source comes first, unchanged
 EXTENDED = {"averaging/__init__.py": ("DeviceFlatPipeline", "FlatFetch",
                                       "named_device_leaves")}
-# imports of modules a later slice brings, each lazily inside a function
-# (``telemetry/watch.py``): the digital twin replays on the simulator, which
-# reaches the coordinator role and the serving plane's host and router
-ALLOWED_MISSING = {"dedloc_tpu_torch.twin.fit", "dedloc_tpu_torch.twin.replay"}
+# copies adapted to the port: (source line, the lines that replace it or
+# None where it goes), each naming one line of the rewritten source exactly.
+# The host roles hold no tensor on a device, so they resolve none: the JAX
+# package's ``force_cpu_if_requested`` pins its platform and does nothing
+# without a chip, the port's resolves the card and raises without one
+_NO_DEVICE = (
+    ("from dedloc_tpu_torch.roles.common import build_dht, force_cpu_if_requested",
+     "from dedloc_tpu_torch.roles.common import build_dht"),
+    ("    force_cpu_if_requested()", None),
+)
+# the JAX fleet pins every peer to the CPU so that none contends for the TPU
+# chip; the port's trainers share the card, and only the host roles (the
+# coordinator and the aux peers) start with CUDA hidden
+_FLEET = (
+    ("  pinned to CPU (DEDLOC_FORCE_CPU=1) so they never contend for the TPU chip;",
+     "  the trainers on the card unless the caller sets DEDLOC_FORCE_CPU=1, the\n"
+     "  coordinator and aux peers with CUDA hidden (they hold no device tensor);"),
+    ('        env = dict(os.environ, DEDLOC_FORCE_CPU="1")',
+     "        env = dict(os.environ)\n"
+     '        if not module.endswith(".trainer"):\n'
+     '            env["CUDA_VISIBLE_DEVICES"] = ""'),
+)
+ADAPTED = {"roles/coordinator.py": _NO_DEVICE, "roles/dht_node.py": _NO_DEVICE,
+           "roles/gateway.py": _NO_DEVICE, "roles/fleet.py": _FLEET}
 
 _DOTTED = re.compile(r"\bdedloc_tpu(?=\.| import\b)")
 
@@ -61,6 +87,16 @@ def _source(rel):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_equals_its_source(rel):
     assert (REPO / "dedloc_tpu_torch" / rel).read_text() == _source(rel)
+
+
+@pytest.mark.parametrize("rel", sorted(ADAPTED))
+def test_adapted_copy_differs_from_its_source_only_by_its_table(rel):
+    lines = _source(rel).split("\n")
+    for old, new in ADAPTED[rel]:
+        assert lines.count(old) == 1, old
+        at = lines.index(old)
+        lines[at:at + 1] = [] if new is None else new.split("\n")
+    assert (REPO / "dedloc_tpu_torch" / rel).read_text() == "\n".join(lines)
 
 
 @pytest.mark.parametrize("rel", sorted(EXTENDED))
@@ -92,11 +128,8 @@ def _port_imports():
 
 def test_every_dotted_port_import_resolves():
     missing = sorted({(str(p), name) for p, name in _port_imports()
-                      if name not in ALLOWED_MISSING
-                      and importlib.util.find_spec(name) is None})
+                      if importlib.util.find_spec(name) is None})
     assert missing == []
-    found = {name for _p, name in _port_imports()}
-    assert ALLOWED_MISSING <= found, "an allow-listed import is gone: drop it"
 
 
 @pytest.mark.parametrize("module,model", [

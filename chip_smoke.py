@@ -141,10 +141,27 @@ Phases (any failure exits non-zero):
               tokens, within 2e-2 of max |ref| of ``moe_ffn`` on the card
               on the tokens it keeps; ms per request.
 
+11. mesh     the ALBERT slice on a torch.distributed mesh, ranks sharing
+              this card over gloo (every collective staged through pinned
+              host memory; NCCL refuses two ranks on one device), each
+              launch through torchrun (this script as the ranks,
+              ``--mesh-worker``): dp2, tp2, ZeRO-1, pp2, ep2 (8 experts),
+              the ring at 1 x 8,192 and tp2 in fp32 on 2 ranks, dp2 x tp2
+              on 4; ALBERT-large at 12 x 512, accumulation 2, remat
+              fused_ln, flash, LAMB, 2 steps each against the one-rank step
+              on the same weights and global batch (MLM loss before the
+              first update, the whole gradient, or for TP the distance to
+              the fp32 step's gradient), replicated blocks bitwise equal
+              across ranks, launches per rank, ms per step, staged bytes and
+              peak memory per rank. Then two torchrun slices (tp2) as two
+              peers through the trainer CLI: 3 averaged steps each, states
+              bitwise equal at every common checkpointed step, the
+              checkpoint a one-device peer's (names, shapes, loads).
+
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
 line, a ``{"downstream": ...}`` line, a ``{"swav": ...}`` line, a
-``{"moe": ...}`` line, the whole
+``{"moe": ...}`` line, a ``{"mesh": ...}`` line, the whole
 script's seconds (``{"script_s": ...}``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -2720,6 +2737,531 @@ def phase_moe(seed: int) -> dict:
                 phase_s=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------- phase 11
+
+# the slice mesh: ranks time-share the one card over gloo (NCCL refuses two
+# ranks on one device), so these runs check layouts and numerics, and their
+# times are not scaling numbers
+MESH_BATCH, MESH_SEQ = 12, 512  # the path phase's micro-batch, accumulation 2
+# sp=2: the longest sequence two ranks hold with remat on one 80 GB card
+# (PERF.md, Findings: a ring block's fp32 scores are B x 16 x (S/2)^2 x 4
+# bytes, ~1.1 GB at 8,192, several live per block in the backward)
+RING_SEQ = 8192
+MESH_CONFIGS = {
+    "dp2": dict(axes=("data",), shape=(2,)),
+    "tp2": dict(axes=("data", "model"), shape=(1, 2)),
+    "zero": dict(axes=("data",), shape=(2,), zero=True),
+    "pp2": dict(axes=("data", "pipe"), shape=(1, 2)),
+    "ep2": dict(axes=("data", "expert"), shape=(1, 2), moe=8),
+    "ring": dict(axes=("data", "seq"), shape=(1, 2), seq=RING_SEQ, batch=1),
+    # TP's arithmetic at full width, without bf16: held to the fp32 step
+    "tp2_fp32": dict(axes=("data", "model"), shape=(1, 2), fp32=True),
+    "dp2tp2": dict(axes=("data", "model"), shape=(2, 2)),
+}
+# launches per optimizer step (accumulation 2) per rank: one device runs
+# 24 applications per micro-batch; dp/tp/ep ranks run all 24 on their rows
+# or heads; a pipe rank runs its 12 on each of the 4 microbatches
+# (pipe_microbatches 0 = 2 x stages) of each micro-batch; the ring runs
+# plain attention blocks and only the add+LN kernel
+MESH_EXPECTED = {
+    "default": {"flash_fwd": 48, "flash_bwd_dkdv": 48, "flash_bwd_dq": 48,
+                "ln_fwd": 96, "ln_bwd": 96},
+    "pp2": {"flash_fwd": 96, "flash_bwd_dkdv": 96, "flash_bwd_dq": 96,
+            "ln_fwd": 192, "ln_bwd": 192},
+    "ring": {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+             "ln_fwd": 96, "ln_bwd": 96},
+    "tp2_fp32": {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                 "ln_fwd": 0, "ln_bwd": 0},
+}
+# the MLM loss before the first update against the one-rank step's (the
+# ranks' sums reach the loss in another order): 1e-3 at first, tightened to
+# 15x the largest reading of PR 9 (6.6e-6, the ring)
+MESH_LOSS_RTOL = 1e-4
+# the whole gradient's relative error (||g - g_ref|| / ||g_ref||) against
+# the one-rank step, for the axes that keep each product's sum whole (dp,
+# ZeRO, pp, ep): 1.5e-2 at first (the MoE phase's card-vs-CPU limit),
+# tightened to ~2x the largest reading of PR 9 (5.5e-3, dp2)
+MESH_GRAD_RTOL = 1e-2
+# TP splits the sums of the row-parallel products, so every activation
+# rounds to bf16 from another fp32 order than on one rank. At init the bf16
+# gradient is 5.6e-2 from the fp32 one, and a one-rank step whose products
+# accumulate in fp32 and round once is already 1.6e-2 from the bf16 one
+# (PERF.md §6): above MESH_GRAD_RTOL with no fault. So a bf16 TP cell is
+# held to a share of the one-rank step's own distance to fp32 (PR 9 read
+# 0.39 and 0.29 of it), and TP's arithmetic to the fp32 step in fp32
+# (tp2_fp32; PR 9 read 2.24e-6, so ~10x that)
+MESH_TP_NOISE_SHARE = 0.6
+MESH_FP32_GRAD_RTOL = 2e-5
+MESH_CLI_STEPS = 3  # averaged global steps the two CLI slices must take
+MESH_CLI_DEADLINE_S = 240.0
+
+
+def _mesh_model(c: dict, seed: int, mesh=None):
+    """ALBERT-large of the mesh phase (remat fused_ln, flash, or the ring
+    on a seq axis; with ``fp32``: fp32, dense attention, no remat), seed
+    weights cut to this rank's blocks on a mesh."""
+    from dedloc_tpu_torch.models.albert import AlbertConfig, AlbertForPreTraining, init_weights
+    from dedloc_tpu_torch.parallel.sharding import rules_for, shard_module
+
+    on = lambda a: mesh if mesh is not None and a in mesh.shape else None
+    over = dict(remat_policy="fused_ln", fused_ln=True,
+                attention_impl="ring" if on("seq") else "flash")
+    if c.get("fp32"):
+        over = dict(dtype=torch.float32, attention_impl="dense", remat=False)
+    if c.get("seq", MESH_SEQ) > 512:
+        over["max_position_embeddings"] = c["seq"]
+    if c.get("moe"):
+        over["moe_experts"] = c["moe"]
+    if mesh is not None:
+        over.update(ring_mesh=on("seq"), pipe_mesh=on("pipe"),
+                    moe_mesh=on("expert"), mesh=mesh)
+    cfg = AlbertConfig.large(**over)
+    model = AlbertForPreTraining(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    if mesh is not None and mesh.size > 1:
+        shard_module(model, mesh, rules_for(mesh))
+    return cfg, model.to(mesh.device if mesh is not None else "cuda")
+
+
+def _flat_named(grads: dict, mesh=None, rules=()) -> tuple:
+    """Gradients as one fp32 vector on the card in sorted JAX-name order
+    (gathered to full tensors on a mesh; every rank calls): (names, each
+    leaf's size, the vector)."""
+    from dedloc_tpu_torch.models import convert
+    from dedloc_tpu_torch.parallel.sharding import gather_tensor, port_spec, spec_for_path
+
+    named = {}
+    for n, g in grads.items():
+        jname, perm = convert.grad_name(n, g.ndim)
+        if mesh is not None:
+            g = gather_tensor(g, port_spec(n, g.ndim, spec_for_path(jname, rules)), mesh)
+        named[jname] = convert.to_jax_layout(g, perm).float().reshape(-1)
+    names = sorted(named)
+    return names, [named[k].numel() for k in names], torch.cat([named[k] for k in names])
+
+
+def _worst_leaves(names, sizes, got, want, n=4) -> list:
+    """The leaves that contribute most to ||got - want||: [name, share of
+    the squared error, the leaf's own relative error]."""
+    out, offset = [], 0
+    total = float(torch.linalg.vector_norm(got - want)) ** 2
+    for name, size in zip(names, sizes):
+        d = got[offset:offset + size] - want[offset:offset + size]
+        ref = float(torch.linalg.vector_norm(want[offset:offset + size]))
+        err = float(torch.linalg.vector_norm(d))
+        out.append([name[-48:], err ** 2 / max(total, 1e-30), err / max(ref, 1e-30)])
+        offset += size
+    return sorted(out, key=lambda t: -t[1])[:n]
+
+
+def _mesh_steps(cfg, model, c, seed, mesh=None, steps=2):
+    """``steps`` LAMB steps (accumulation 2) of ``model`` on the slice's
+    batches; the first step's micro-batch metrics and mean gradients (flat,
+    full) before its update, per-step launches, times and staged bytes."""
+    from dedloc_tpu_torch.core.config import TrainingArguments
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+    from dedloc_tpu_torch.parallel import mesh as pm
+    from dedloc_tpu_torch.parallel.sharding import rules_for
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState, make_accumulate_step, make_guarded_apply_step, reduce_grads,
+        zeros_like_grads)
+    from dedloc_tpu_torch.roles.common import (
+        build_loss_fn, build_optimizer, drop_collator_keys, loss_keys,
+        synthetic_mlm_batches)
+    from dedloc_tpu_torch.roles.trainer import _shard_state
+    from dedloc_tpu_torch.utils.device import divide
+
+    batch, seq = c.get("batch", MESH_BATCH), c.get("seq", MESH_SEQ)
+    tx = build_optimizer(TrainingArguments(model_size="large", warmup_steps=0,
+                                           per_device_batch_size=batch,
+                                           seq_length=seq, seed=seed))
+    params = dict(model.named_parameters())
+    state = TrainState.create(params, tx)
+    pspecs = ospecs = None
+    if mesh is not None:
+        state, pspecs, ospecs = _shard_state(state, mesh, tx, c.get("zero", False))
+    accumulate = make_accumulate_step(build_loss_fn(model))
+    apply = make_guarded_apply_step(tx, mesh=mesh, opt_state_sharding=ospecs,
+                                    param_sharding=pspecs)
+    batches = synthetic_mlm_batches(cfg, batch, seq, seed)
+    wrappers = fa.WRAPPERS + fl.WRAPPERS
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for w in wrappers:
+        w.launches = 0
+    out = dict(step_ms=[], launches_per_step=[], staged_bytes_per_step=[],
+               losses=[], oks=[])
+    for step in range(steps):
+        before = {w.__name__: w.launches for w in wrappers}
+        staged = pm.STAGING.bytes
+        t0 = time.perf_counter()
+        grad_acc, n = zeros_like_grads(params), 0
+        for _ in range(2):
+            host = next(batches)
+            if mesh is None:
+                b = drop_collator_keys(host, device=device)
+            else:
+                b = pm.put_batch({k: host[k] for k in loss_keys(host)}, mesh,
+                                 seq_axis="seq" if "seq" in mesh.shape else None,
+                                 seq_length=seq)
+            grad_acc, n, metrics = accumulate(params, grad_acc, n, b)
+            out["losses"].append({k: float(v) for k, v in metrics.items()})
+        summed = (reduce_grads(grad_acc, mesh, pspecs) if mesh is not None
+                  else grad_acc)
+        mean = {k: divide(g, n) for k, g in summed.items()}
+        if step == 0:
+            torch.cuda.synchronize()
+            pause = time.perf_counter()
+            out["names"], out["sizes"], out["grads"] = _flat_named(
+                mean, mesh, rules_for(mesh) if mesh is not None else ())
+            t0 += time.perf_counter() - pause  # the check is not the step's
+        state, ok = apply(state, mean)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["oks"].append(bool(ok))
+        out["launches_per_step"].append({w.__name__: w.launches - before[w.__name__]
+                                         for w in wrappers})
+        out["staged_bytes_per_step"].append(pm.STAGING.bytes - staged)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["state"], out["pspecs"], out["ospecs"] = state, pspecs, ospecs
+    return out
+
+
+def _mesh_digests(state, pspecs, ospecs) -> dict:
+    """sha256 of each parameter and moment block this rank holds, with the
+    mesh axes the block is split over."""
+    digest = lambda t: hashlib.sha256(
+        t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()
+    axes = lambda spec: [a for a in (spec or ()) if a is not None]
+    out = {n: (digest(p), axes((pspecs or {}).get(n))) for n, p in state.params.items()}
+    mspecs = ospecs.mu if ospecs is not None else (pspecs or {})
+    for field in ("mu", "nu"):
+        for n, t in getattr(state.opt_state, field).items():
+            out[f"{field}:{n}"] = (digest(t), axes(mspecs.get(n)))
+    return out
+
+
+def mesh_worker(names: list, out_path: str, seed: int) -> int:
+    """One rank of a torchrun launch of this script: each config of
+    ``names`` (MESH_CONFIGS) as a slice of the launch's ranks on this card,
+    against the one-rank step rank 0 runs first on the same weights and
+    batches. Rank 0 writes the results (and every check's failure) to
+    ``out_path``."""
+    import torch.distributed as dist
+
+    from dedloc_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    pm.init_slice(world, "cuda")
+    rank = dist.get_rank()
+    refs, results, errors = {}, {}, []
+    for name in names:
+        c = MESH_CONFIGS[name]
+        key = (c.get("moe", 0), c.get("seq", MESH_SEQ), c.get("batch", MESH_BATCH))
+        if rank == 0 and key not in refs:
+            cfg, model = _mesh_model(c, seed)
+            ref = _mesh_steps(cfg, model, c, seed, steps=1)
+            refs[key] = dict(loss=ref["losses"][0], names=ref["names"],
+                             sizes=ref["sizes"], grads=ref["grads"],
+                             launches=ref["launches_per_step"][0],
+                             step_ms=ref["step_ms"][0])
+            del model, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        if rank == 0 and "model" in c["axes"] and "truth" not in refs[key]:
+            # the fp32 one-rank step (the exact gradient TP is held to)
+            cfg, model = _mesh_model(dict(c, fp32=True), seed)
+            refs[key]["truth"] = _mesh_steps(cfg, model, c, seed, steps=1)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        mesh = pm.make_mesh(world, c["axes"], c["shape"], device_type="cuda")
+        cfg, model = _mesh_model(c, seed, mesh)
+        # the fp32 check needs the gradient before the first update only
+        run = _mesh_steps(cfg, model, c, seed, mesh, steps=1 if c.get("fp32") else 2)
+        digests = _mesh_digests(run["state"], run["pspecs"], run["ospecs"])
+        every = [None] * world
+        dist.all_gather_object(every, dict(digests=digests, coords=mesh.index,
+                                           launches=run["launches_per_step"],
+                                           peak=run["peak_bytes"],
+                                           staged=run["staged_bytes_per_step"]))
+        del model
+        if rank == 0:
+            r = refs[key]
+            expected = MESH_EXPECTED.get(name, MESH_EXPECTED["default"])
+            loss, want = run["losses"][0]["mlm_loss"], r["loss"]["mlm_loss"]
+            loss_err = abs(loss - want) / abs(want)
+            if run["names"] != r["names"]:
+                errors.append(f"{name}: gradient names differ from the one-rank step")
+            diff = torch.linalg.vector_norm(run["grads"] - r["grads"])
+            grad_err = float(diff / torch.linalg.vector_norm(r["grads"]))
+            worst = _worst_leaves(r["names"], r["sizes"], run["grads"], r["grads"])
+            if loss_err > MESH_LOSS_RTOL and not c.get("fp32"):
+                errors.append(f"{name}: MLM loss {loss} vs one rank {want} "
+                              f"(rel {loss_err:.3e} > {MESH_LOSS_RTOL})")
+            truth = {}
+            if "model" in c["axes"]:
+                exact = r["truth"]["grads"]
+                rel = lambda g: float(torch.linalg.vector_norm(g - exact)
+                                      / torch.linalg.vector_norm(exact))
+                truth = dict(grad_rel_err_vs_fp32=rel(run["grads"]),
+                             one_rank_grad_rel_err_vs_fp32=rel(r["grads"]))
+                if c.get("fp32"):
+                    # the fp32 TP step against the fp32 one-rank step
+                    grad_err = truth["grad_rel_err_vs_fp32"]
+                    want = r["truth"]["losses"][0]["mlm_loss"]
+                    loss_err = abs(loss - want) / abs(want)
+                    if loss_err > MESH_LOSS_RTOL:
+                        errors.append(f"{name}: MLM loss {loss} vs fp32 one rank "
+                                      f"{want} (rel {loss_err:.3e})")
+                    limit = MESH_FP32_GRAD_RTOL
+                else:
+                    limit = MESH_TP_NOISE_SHARE * truth["one_rank_grad_rel_err_vs_fp32"]
+                if grad_err > limit:
+                    errors.append(f"{name}: gradient rel err {grad_err:.3e} > "
+                                  f"{limit:.3e} ({truth})")
+            elif name != "ring" and grad_err > MESH_GRAD_RTOL:
+                errors.append(f"{name}: gradient rel err {grad_err:.3e} > {MESH_GRAD_RTOL}")
+            for rk, e in enumerate(every):
+                for counts in e["launches"]:
+                    if counts != expected:
+                        errors.append(f"{name}: rank {rk} launched {counts} per "
+                                      f"step (want {expected})")
+            unequal = []
+            for leaf, (_d, axes) in digests.items():
+                groups = {}
+                for e in every:
+                    k = tuple(e["coords"][a] for a in axes)
+                    groups.setdefault(k, set()).add(e["digests"][leaf][0])
+                if any(len(v) > 1 for v in groups.values()):
+                    unequal.append(leaf)
+            if unequal:
+                errors.append(f"{name}: replicated blocks differ across ranks: "
+                              f"{unequal[:4]}")
+            if not all(run["oks"]) or not all(
+                    math.isfinite(m["loss"]) for m in run["losses"]):
+                errors.append(f"{name}: non-finite loss or a rolled-back step")
+            ms = run["step_ms"][-1]
+            batch = c.get("batch", MESH_BATCH)
+            results[name] = dict(
+                axes=dict(zip(c["axes"], c["shape"])), ranks=world,
+                ranks_per_card=mesh.ranks_per_device, backend=mesh.backend,
+                zero=bool(c.get("zero")), seq_length=c.get("seq", MESH_SEQ),
+                micro_batch=batch, moe_experts=c.get("moe", 0),
+                ms_per_step=ms, step_ms=run["step_ms"],
+                samples_per_s=2 * batch / (ms / 1e3),
+                peak_bytes_per_rank=[e["peak"] for e in every],
+                staged_bytes_per_step=[e["staged"][-1] for e in every],
+                mlm_loss=loss, one_rank_mlm_loss=want, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, worst_leaves=worst, **truth,
+                one_rank_ms_per_step=r["step_ms"],
+                one_rank_launches=r["launches"],
+                launches_per_step_per_rank=[e["launches"][-1] for e in every],
+                expected_launches=expected, replicated_bitwise=not unequal,
+                losses=[m["loss"] for m in run["losses"]])
+            print(f"[mesh] {name}: {json.dumps({k: v for k, v in results[name].items() if k != 'losses'})}",
+                  file=sys.stderr, flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(dict(results=results, errors=errors), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(n: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(n), *args]
+
+
+def mesh_steps_on_card(seed: int, work: str) -> dict:
+    """The mesh configs through torchrun: dp2, tp2, ZeRO, pp2, ep2 and the
+    ring on 2 ranks, dp2 x tp2 on 4, all on this card."""
+    here = os.path.abspath(__file__)
+    out = {}
+    for n, names in ((2, ["dp2", "tp2", "tp2_fp32", "zero", "pp2", "ep2", "ring"]),
+                     (4, ["dp2tp2"])):
+        path = os.path.join(work, f"mesh{n}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            _torchrun(n, here, "--mesh-worker", ",".join(names),
+                      "--mesh-out", path, "--seed", str(seed)),
+            cwd=os.path.dirname(here), capture_output=True, text=True,
+            timeout=600)
+        for line in proc.stderr.splitlines():
+            if line.startswith("[mesh]"):
+                log(line)
+        if proc.returncode != 0 or not os.path.exists(path):
+            fail(f"mesh: the {n}-rank launch failed ({proc.returncode}):\n"
+                 f"{proc.stderr[-4000:]}")
+        with open(path) as f:
+            got = json.load(f)
+        if got["errors"]:
+            fail("mesh: " + "; ".join(got["errors"]))
+        out.update(got["results"])
+        log(f"  {n}-rank launch: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mesh_cli(seed: int, work: str) -> dict:
+    """Two slices (torchrun, 2 ranks each, dp1 x tp2) as two peers of one
+    collaboration through the trainer CLI on this card; stopped once both
+    took MESH_CLI_STEPS averaged steps."""
+    from dedloc_tpu_torch.models import convert
+    from dedloc_tpu_torch.roles.common import build_model, build_optimizer
+    from dedloc_tpu_torch.core.config import TrainingArguments
+    from dedloc_tpu_torch.parallel.train_step import TrainState
+    from dedloc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ports = {"A": _free_port(), "B": _free_port()}
+    flags = ["-m", "dedloc_tpu_torch.roles.trainer",
+             "--dht.experiment_prefix", "chip-smoke-mesh",
+             "--dht.listen_host", "127.0.0.1",
+             "--training.model_size", "large", "--training.remat_policy", "fused_ln",
+             "--training.attention_impl", "flash",
+             "--training.per_device_batch_size", "6", "--training.seq_length", "512",
+             "--training.gradient_accumulation_steps", "2",
+             "--training.mesh_devices", "2", "--training.mesh_model_devices", "2",
+             "--training.warmup_steps", "0", "--training.seed", str(seed),
+             "--training.max_local_steps", "200", "--training.save_steps", "1",
+             "--training.save_total_limit", "0",
+             "--optimizer.target_batch_size", "48",
+             "--averager.compression", "float16",
+             "--averager.min_refresh_period", "0.2",
+             "--averager.default_refresh_period", "0.5"]
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for peer, other in (("A", "B"), ("B", "A")):
+            pdir = os.path.join(work, peer)
+            os.makedirs(pdir)
+            logs[peer] = open(os.path.join(pdir, "log.txt"), "w")
+            procs[peer] = subprocess.Popen(
+                _torchrun(2, *flags,
+                          "--dht.listen_port", str(ports[peer]),
+                          "--dht.initial_peers", f"127.0.0.1:{ports[other]}",
+                          "--training.output_dir", pdir,
+                          "--training.train_log_path",
+                          os.path.join(pdir, "train.jsonl")),
+                stdout=logs[peer], stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+        deadline = time.time() + MESH_CLI_DEADLINE_S
+        while time.time() < deadline:
+            done = all(sum(r["group_size"] == 2 for r in
+                           _jsonl(os.path.join(work, p, "train.jsonl")))
+                       >= MESH_CLI_STEPS for p in procs)
+            if done or any(pr.poll() is not None for pr in procs.values()):
+                break
+            time.sleep(1.0)
+        for peer, pr in procs.items():
+            if pr.poll() is not None:
+                with open(os.path.join(work, peer, "log.txt")) as f:
+                    fail(f"mesh: slice {peer} exited early ({pr.returncode}):\n"
+                         f"{f.read()[-3000:]}")
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                os.killpg(pr.pid, signal.SIGINT)
+        for pr in procs.values():
+            try:
+                pr.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(pr.pid, signal.SIGKILL)
+                pr.wait()
+        for f in logs.values():
+            f.close()
+    wall_s = time.perf_counter() - t0
+    reports = {}
+    for peer in procs:
+        records = _jsonl(os.path.join(work, peer, "train.jsonl"))
+        with open(os.path.join(work, peer, "log.txt")) as f:
+            text = f.read()
+        joint = [r for r in records if r["group_size"] == 2]
+        if len(joint) < MESH_CLI_STEPS:
+            fail(f"mesh: slice {peer} took {len(joint)} averaged steps "
+                 f"(want {MESH_CLI_STEPS}):\n{text[-3000:]}")
+        if any(r["samples"] != 6 * 2 * 2 for r in records):
+            fail(f"mesh: slice {peer} samples per boundary "
+                 f"{sorted({r['samples'] for r in records})} != 24")
+        if "backend gloo" not in text:
+            fail(f"mesh: slice {peer} did not log its gloo backend")
+        prev = {"boundaries": 0, "kernel_launches": {k: 0 for k in COLLAB_EXPECTED}}
+        for r in records:
+            nb = r["boundaries"] - prev["boundaries"]
+            got = {k: r["kernel_launches"][k] - prev["kernel_launches"][k]
+                   for k in COLLAB_EXPECTED}
+            if got != {k: v * nb for k, v in COLLAB_EXPECTED.items()}:
+                fail(f"mesh: slice {peer} rank 0 launched {got} in {nb} "
+                     f"boundaries (want {COLLAB_EXPECTED} each)")
+            prev = r
+        reports[peer] = dict(
+            averaged_steps=[r["step"] for r in joint],
+            solo_steps=[r["step"] for r in records if r["group_size"] == 1],
+            losses=[r["loss"] for r in records],
+            samples_per_boundary=records[-1]["samples"],
+            samples_per_s=statistics.mean(r["samples_per_second"] for r in joint),
+            boundary_ms=statistics.median(r["boundary_ms"] for r in joint),
+            max_memory_allocated=records[-1].get("max_memory_allocated"))
+    common = sorted(set(reports["A"]["averaged_steps"])
+                    & set(reports["B"]["averaged_steps"]))
+    hashes = {}
+    for step in common:
+        paths = [os.path.join(work, p, f"checkpoint-{step}") for p in procs]
+        if all(os.path.isdir(x) for x in paths):
+            hashes[step] = [_state_hash(x) for x in paths]
+    if not hashes or any(h[0] != h[1] for h in hashes.values()):
+        fail(f"mesh: the slices' states differ (or none common): "
+             f"{ {s: h[0] == h[1] for s, h in hashes.items()} }")
+    # the checkpoint is a one-device peer's: the one-device schema, and it
+    # loads into the one-device model
+    named, _meta = load_checkpoint(os.path.join(work, "A", f"checkpoint-{max(hashes)}"))
+    _cfg, model = build_model("large", device="cpu", seed=seed)
+    tx = build_optimizer(TrainingArguments(model_size="large", warmup_steps=0))
+    schema = {k: tuple(v.shape) for k, v in tx.state_views(
+        dict(model.named_parameters()),
+        TrainState.create(dict(model.named_parameters()), tx).opt_state).items()}
+    if {k: tuple(np_shape) for k, np_shape in
+            ((k, v.shape) for k, v in named.items())} != schema:
+        fail("mesh: the slice's checkpoint names/shapes differ from a one-device peer's")
+    model.load_state_dict(convert.params_from_checkpoint(named))
+    log(f"  states equal at every common averaged step {sorted(hashes)}; "
+        f"checkpoint-{max(hashes)} loads into the one-device model")
+    return dict(wall_s=wall_s, slices=reports, common_steps=sorted(hashes),
+                states_equal_every_round=True, state_sha256=hashes[max(hashes)][0],
+                checkpoint_schema_one_device=True)
+
+
+def phase_mesh(seed: int) -> dict:
+    """The ALBERT slice on a torch.distributed mesh of ranks sharing this
+    card: each axis against the one-rank step, and two CLI slices as peers."""
+    from dedloc_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh-", dir=_build.BUILD_DIR)
+    try:
+        log("[mesh] dp2, tp2, ZeRO-1, pp2, ep2, ring (2 ranks), dp2 x tp2 (4 ranks)")
+        runs = mesh_steps_on_card(seed, work)
+        log("[mesh] two torchrun slices (tp2) as peers through the trainer CLI")
+        cli = mesh_cli(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(runs=runs, cli=cli, phase_s=time.perf_counter() - t0)
+
+
 def _kind(name: str) -> str:
     if "flash_" in name or "_ln_" in name:
         return "port kernels"
@@ -2772,11 +3314,17 @@ def profile_step(step, trace_name: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # internal: one rank of the mesh phase's torchrun launches
+    ap.add_argument("--mesh-worker", default="")
+    ap.add_argument("--mesh-out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import dedloc_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker.split(","), args.mesh_out, args.seed)
 
     script_t0 = time.perf_counter()
 
@@ -2790,6 +3338,7 @@ def main(argv=None) -> int:
     downstream = phase_downstream(args.seed)
     swav = phase_swav(args.seed)
     moe = phase_moe(args.seed)
+    mesh = phase_mesh(args.seed)
 
     rows = []
     for k in kernels:
@@ -2820,6 +3369,10 @@ def main(argv=None) -> int:
             rows[-1]["launches_moe"] = moe["full_width"]["launches"][name]
             rows[-1]["launches_moe_trainers"] = sum(
                 v[name] for v in moe["deployment"]["kernel_launches"].values())
+            # the mesh cells: launches per optimizer step of each rank
+            rows[-1]["launches_mesh_per_rank_per_step"] = {
+                cell: [counts[name] for counts in run["launches_per_step_per_rank"]]
+                for cell, run in mesh["runs"].items()}
         if rows[-1]["route"] == "cuda":
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with
@@ -2834,6 +3387,7 @@ def main(argv=None) -> int:
     print(json.dumps({"downstream": downstream}))
     print(json.dumps({"swav": swav}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"script_s": time.perf_counter() - script_t0}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,13 @@ Split (SURVEY.md §7 hard-parts b,c):
   device-resident fp32 grad accumulator;
 - ``step`` crosses the device↔asyncio seam exactly once per GLOBAL step
   (the flat copy of the mean grads), not per micro-batch.
+
+With a slice ``mesh`` (``mesh_devices > 1``) this optimizer runs on the
+slice's rank 0 and drives the other ranks through ``collaborative/slice.py``:
+the boundary's gradients are summed and gathered to full tensors here, the
+averaged result goes back to every rank, which applies on its own blocks
+(the guarded per-leaf apply; the flat apply is off on a mesh, as in the JAX
+package), and shared state and adopted state cross as full tensors.
 """
 from __future__ import annotations
 
@@ -177,9 +184,9 @@ class CollaborativeOptimizer:
         relay: Optional[str] = None,  # circuit relay for client-mode peers
         auxiliary: bool = False,
         allow_state_sharing: bool = True,
-        mesh=None,  # must stay None: the mesh axes come with a later slice
-        opt_state_sharding=None,
-        param_sharding=None,
+        mesh=None,  # the slice mesh (parallel/mesh.py); this is its rank 0
+        opt_state_sharding=None,  # ZeRO-1 moment layout (parallel.zero)
+        param_sharding=None,  # tensor/expert-parallel layout (parallel.sharding)
         verbose: bool = False,
         listen_host: str = "0.0.0.0",
         listen_port: int = 0,  # fixed averager port (0 = ephemeral); a
@@ -268,6 +275,16 @@ class CollaborativeOptimizer:
         # group envelope the receipt is built from)
     ):
         assert not (client_mode and auxiliary), "an auxiliary peer must listen"
+        self._slice = None
+        if mesh is not None and mesh.size > 1:
+            if overlap_averaging:
+                raise ValueError(
+                    "overlap_averaging on a slice mesh is not ported yet: its "
+                    "restore path would add full gradients into the ranks' "
+                    "blocks (ROADMAP A6)")
+            from dedloc_tpu_torch.collaborative.slice import Slice
+
+            self._slice = Slice(mesh, tx, param_sharding, opt_state_sharding)
         self.tx = tx
         self.dht = dht
         self.prefix = prefix
@@ -455,8 +472,19 @@ class CollaborativeOptimizer:
     ) -> Tuple[TrainState, Any, Any, bool]:
         """Per-accumulation-boundary call. Returns (state, grad_acc, n_acc,
         performed_global_step). All heavy work happens only when the global
-        target batch is reached."""
+        target batch is reached. On a slice mesh the other ranks follow
+        the boundary (``Slice.follow``) until its ``end``."""
         assert not self.auxiliary, "auxiliary peers must use step_aux()"
+        if self._slice is None:
+            return self._step(state, grad_acc, n_acc, samples)
+        state, out_acc, out_n, stepped = self._step(state, grad_acc, n_acc, samples)
+        if out_acc is self._slice.gathered:
+            # a round to retry keeps the accumulation: the ranks' own parts
+            out_acc, out_n = grad_acc, n_acc
+        self._slice.end(stepped, out_acc is not grad_acc, self.local_step)
+        return state, out_acc, out_n, stepped
+
+    def _step(self, state: TrainState, grad_acc, n_acc, samples: int):
         with self._lock:
             tele = telemetry.resolve(self.telemetry)
             if tele is not None and samples > 0:
@@ -672,6 +700,10 @@ class CollaborativeOptimizer:
     def _global_step(self, state: TrainState, grad_acc, n_acc, collab):
         """Average gradients with the group and apply one optimizer update."""
         round_id = f"step{collab.optimizer_step}"
+        if self._slice is not None:
+            # the slice's whole gradient sums, under the single-device
+            # names and shapes
+            grad_acc = self._slice.collect_grads(grad_acc)
         n = max(int(n_acc), 1)
         # contribution cap: sample-weighted averaging assumes equal
         # per-sample gradient quality, so the cap scales with OUR samples
@@ -896,7 +928,7 @@ class CollaborativeOptimizer:
                     # a plain named dict (legacy/stubbed averager): rebuild
                     # the params-keyed dict here so _apply_and_advance can
                     # tell it apart from a flat result
-                    averaged = _named_to_grads(averaged, state.params)
+                    averaged = _named_to_grads(averaged, self._grad_like(state))
                 return self._apply_and_advance(
                     state, averaged, collab, group_size
                 )
@@ -1015,7 +1047,13 @@ class CollaborativeOptimizer:
         """The fused flat apply for ``spec``, or None (per-leaf guarded
         apply) when no factory was wired, a sharded layout is in play, or
         a previous build failed."""
-        if self.flat_opt_factory is None or self._flat_apply_failed:
+        if (
+            self.flat_opt_factory is None
+            or self._flat_apply_failed
+            or self.mesh is not None
+            or self.opt_state_sharding is not None
+            or self.param_sharding is not None
+        ):
             return None
         key = [(name, tuple(shape)) for name, shape, _dtype in spec]
         if self._flat_apply_fn is not None and self._flat_apply_spec == key:
@@ -1299,8 +1337,13 @@ class CollaborativeOptimizer:
                 if isinstance(mean_grads, FlatTree):
                     # flat result without a flat apply: rebuild the
                     # params-keyed dict from the named views
-                    mean_grads = _named_to_grads(mean_grads, state.params)
-                new_state, ok = self._apply_fn(state, mean_grads)
+                    mean_grads = _named_to_grads(mean_grads, self._grad_like(state))
+                if self._slice is not None:
+                    # every rank applies its blocks of the full result
+                    new_state, ok = self._slice.apply(self._apply_fn, state,
+                                                      mean_grads)
+                else:
+                    new_state, ok = self._apply_fn(state, mean_grads)
                 self.last_apply = "leaf"
             self._pending_apply_ok = (round_id, ok)
             if steps.current() is not None:
@@ -1380,7 +1423,7 @@ class CollaborativeOptimizer:
         # order): the next global step's apply writes the live params and
         # moments in place, so the thread must never read them
         snapshot = {k: v.clone(memory_format=torch.contiguous_format)
-                    for k, v in _state_views(state, self.tx).items()}
+                    for k, v in self.state_views(state).items()}
         ready = None
         if self._device(state).type == "cuda":
             ready = torch.cuda.Event()
@@ -1411,6 +1454,26 @@ class CollaborativeOptimizer:
     @staticmethod
     def _device(state: TrainState) -> torch.device:
         return next(iter(state.params.values())).device
+
+    def state_views(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The state under the JAX shared-state names; on a slice, gathered
+        from every rank to full tensors."""
+        if self._slice is not None:
+            return self._slice.views(state)
+        return _state_views(state, self.tx)
+
+    def _grad_like(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """What averaged gradients are shaped like: the params, or on a
+        slice their full shapes."""
+        if self._slice is not None:
+            return self._slice.full_like(state.params)
+        return state.params
+
+    def adopt(self, state: TrainState, named, step: int) -> TrainState:
+        """``adopt_state``; on a slice every rank keeps its blocks."""
+        if self._slice is not None:
+            return self._slice.adopt(state, named, step)
+        return adopt_state(state, named, step, self.tx)
 
     @staticmethod
     def _snapshot_to_host(snapshot: Dict[str, torch.Tensor],
@@ -1482,8 +1545,7 @@ class CollaborativeOptimizer:
             )
             return state
         try:
-            new_state = adopt_state(state, named,
-                                    int(metadata.get("step", 0)), self.tx)
+            new_state = self.adopt(state, named, int(metadata.get("step", 0)))
         except (KeyError, ValueError) as e:
             logger.warning(f"peer state incompatible ({e!r}); keeping local")
             return state

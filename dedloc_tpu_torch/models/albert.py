@@ -30,8 +30,25 @@ follow it:
   collection); each application returns its own beside ``hidden``, the one
   way out of its checkpoint.
 
-Not ported yet (they raise ``NotImplementedError``): ``ring`` attention,
-``pipe_mesh`` and ``moe_mesh`` (experts sharded over devices).
+On a slice mesh (``parallel/mesh.py``: one rank per mesh device, each
+holding its blocks of the parameters, ``parallel/sharding.py``) the model
+runs this rank's part and inserts the collectives GSPMD inserts for JAX:
+
+- a ``model`` axis in ``mesh`` (tensor parallelism, Megatron): q/k/v and the FFN
+  up-projection are column-parallel (the local heads go through the flash
+  kernel), the attention output and the FFN down-projection row-parallel
+  (a ``psum`` before the bias), the word embedding vocab-parallel (ids
+  outside the local rows masked, then a ``psum``) and the tied decoder's
+  vocab shards all-gathered into the logits;
+- ``attention_impl="ring"`` with ``ring_mesh`` (the ``seq`` axis): each
+  rank holds S/sp positions, its position ids and key bias start at
+  rank x S/sp, and attention is ``parallel/ring_attention.py``'s ring;
+- ``pipe_mesh`` (the ``pipe`` axis): the shared block staged over the
+  ranks, num_hidden_layers/stages applications each, under the GPipe
+  schedule of ``parallel/pipeline.py``;
+- ``moe_mesh`` (the ``expert`` axis): each rank runs its experts
+  (``parallel/moe.py``); ``mesh`` (the slice) makes the MoE capacity and
+  positions the slice's, over its data and seq shards.
 """
 from __future__ import annotations
 
@@ -56,7 +73,11 @@ from dedloc_tpu_torch.ops import fused_ln as _fused_ln
 from dedloc_tpu_torch.ops.flash_attention import flash_attention
 from dedloc_tpu_torch.ops.fused_ln import ln_residual, ln_residual_reference
 from dedloc_tpu_torch.parallel import moe as _moe
-from dedloc_tpu_torch.parallel.ring_attention import blockwise_attention
+from dedloc_tpu_torch.parallel.mesh import copy_to, gather, psum
+from dedloc_tpu_torch.parallel.ring_attention import (
+    blockwise_attention,
+    ring_attention,
+)
 from dedloc_tpu_torch.utils.device import divide
 
 
@@ -85,20 +106,33 @@ class AlbertConfig:
     remat: bool = True
     remat_policy: str = "nothing"
     fused_ln: bool = False
-    attention_impl: str = "dense"  # dense | blockwise | flash (ring: later)
+    attention_impl: str = "dense"  # dense | blockwise | flash | ring
     # the KV block of blockwise attention (JAX also tiles its flash kernel
     # by it; the CUDA kernels tile by 64 at any length)
     attention_block_size: int = 512
-    # later slices (set here, they raise): pipeline stages
+    # sequence parallelism for attention_impl="ring": the mesh whose
+    # ring_axis the sequence is split over
+    ring_mesh: Any = None
+    ring_axis: str = "seq"
+    # pipeline parallelism: the mesh whose pipe_axis the block's
+    # applications are staged over; pipe_microbatches 0 = 2 x stages
     pipe_mesh: Any = None
+    pipe_axis: str = "pipe"
+    pipe_microbatches: int = 0
     # Switch-MoE FFN variant (--training.moe_experts, parallel/moe.py): the
     # dense gelu FFN becomes a top-1-routed expert FFN; the load-balancing
-    # aux loss is added at moe_aux_weight. moe_mesh (experts sharded over
-    # devices) comes with the parallel-axes slice and raises
+    # aux loss is added at moe_aux_weight. moe_mesh: experts split over
+    # its moe_axis
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     moe_mesh: Any = None
+    moe_axis: str = "expert"
+    # the slice mesh: its data and seq axes hold the slice's other tokens
+    # (the MoE capacity and positions, and the loss, are the slice's); a
+    # "model" axis is tensor parallelism (the port's explicit form of the
+    # JAX package's TP layout: the Megatron rules split over it)
+    mesh: Any = None
 
     @staticmethod
     def named(model_size: str):
@@ -199,21 +233,79 @@ def remat_policy_object(name: str) -> Callable:
 
 
 def _check_supported(cfg: AlbertConfig) -> None:
-    later = []
-    if cfg.attention_impl == "ring":
-        later.append(f"attention_impl={cfg.attention_impl!r}")
-    elif cfg.attention_impl not in ("dense", "blockwise", "flash"):
+    if cfg.attention_impl not in ("dense", "blockwise", "flash", "ring"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    if cfg.attention_impl == "ring" and cfg.ring_mesh is None:
+        raise ValueError(
+            "attention_impl='ring' needs ring_mesh (a Mesh with a "
+            f"{cfg.ring_axis!r} axis); the trainer sets it when "
+            "--training.mesh_seq_devices > 1")
     if cfg.pipe_mesh is not None:
-        later.append("pipe_mesh")
-    if cfg.moe_mesh is not None:
-        later.append("moe_mesh")
+        n_stages = cfg.pipe_mesh.shape[cfg.pipe_axis]
+        if cfg.num_hidden_layers % n_stages:
+            raise ValueError(
+                f"num_hidden_layers ({cfg.num_hidden_layers}) must divide "
+                f"evenly into {n_stages} pipeline stages")
+        if cfg.moe_experts > 0:
+            raise ValueError(
+                "pipe_mesh + moe_experts unsupported: the expert all-to-all "
+                "would need its own axis inside the pipeline's stages")
+        if cfg.attention_impl == "ring":
+            raise ValueError(
+                "pipe_mesh + attention_impl='ring' unsupported: ring "
+                "attention runs its own collectives over the seq axis")
+        if _tp(cfg)[0] is not None:
+            raise ValueError(
+                "pipe_mesh + tensor parallelism unsupported: the pipeline "
+                "composes with the data axis only")
     if cfg.remat:
         remat_policy_object(cfg.remat_policy)  # unknown names raise here
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: not ported yet (later slices of the port)"
-        )
+
+
+def _tp(cfg: AlbertConfig):
+    """(mesh, axis) of tensor parallelism, or (None, None)."""
+    mesh = cfg.mesh
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return mesh, "model"
+    return None, None
+
+
+def seq_offset(cfg: AlbertConfig, s_local: int) -> int:
+    """The first global position of this rank's sequence shard."""
+    if cfg.attention_impl != "ring" or cfg.ring_mesh is None:
+        return 0
+    return cfg.ring_mesh.axis_index(cfg.ring_axis) * s_local
+
+
+def local_positions(cfg: AlbertConfig, positions: torch.Tensor, s_local: int):
+    """Gathered MLM positions (global) -> (index into this rank's sequence
+    shard, clamped; whether the position is in the shard)."""
+    local = positions.long() - seq_offset(cfg, s_local)
+    inside = (local >= 0) & (local < s_local)
+    return local.clamp(0, s_local - 1), inside
+
+
+def _column_parallel(dense: "Dense", x: torch.Tensor, name: Optional[str] = None):
+    """A column-parallel ``Dense`` on the fp32 copy of a bf16 input that
+    ``copy_to`` made: this rank's output columns, the product of the
+    bf16-rounded operands accumulated in fp32 and rounded once, as the
+    one-device product. In fp32 the input's gradient is this rank's partial
+    sum, and ``copy_to`` adds the ranks' partials before one rounding
+    (rounding each first would round twice)."""
+    dt = dense.compute_dtype
+    with checkpoint_name(name) if name else contextlib.nullcontext():
+        y = F.linear(x, dense.weight.to(dt).float(), dense.bias.to(dt).float())
+        return y.to(dt)
+
+
+def _row_parallel(dense: "Dense", x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """A row-parallel ``Dense``: this rank's input slice times its rows of
+    the weight in fp32 (the bf16-rounded operands), summed over ``axis``,
+    plus the (replicated) bias, rounded once to the compute dtype, as the
+    one-device product is."""
+    dt = dense.compute_dtype
+    y = psum(F.linear(x.to(dt).float(), dense.weight.to(dt).float()), mesh, axis)
+    return (y + dense.bias.to(dt).float()).to(dt)
 
 
 # ----------------------------------------------------------------- dropout
@@ -332,22 +424,34 @@ class AlbertSelfAttention(nn.Module):
         hidden's device (None: no dropout)."""
         cfg = self.cfg
         b, s, h = hidden.shape
-        nh = cfg.num_attention_heads
-        hd = h // nh
+        hd = h // cfg.num_attention_heads
+        # this rank's heads: all of them, or its column block under TP
+        nh = self.query.weight.shape[0] // hd
+        hl = nh * hd
+        mesh, axis = _tp(cfg)
         # q, k and v are the flash kernel's inputs, named for the fused_ln*
         # policies as the JAX package names them (in the flash call only)
         name = "flash_qkv" if cfg.attention_impl == "flash" else None
-        q = self.query(hidden, name).reshape(b, s, nh, hd)
-        k = self.key(hidden, name).reshape(b, s, nh, hd)
-        v = self.value(hidden, name).reshape(b, s, nh, hd)
+        if mesh is None:
+            proj = lambda dense: dense(hidden, name)
+        else:  # column-parallel: this rank's heads
+            x = copy_to(hidden.float(), mesh, axis)
+            proj = lambda dense: _column_parallel(dense, x, name)
+        q = proj(self.query).reshape(b, s, nh, hd)
+        k = proj(self.key).reshape(b, s, nh, hd)
+        v = proj(self.value).reshape(b, s, nh, hd)
         if cfg.attention_impl == "flash":
-            ctx = flash_attention(q, k, v, kv_bias).reshape(b, s, h)
+            ctx = flash_attention(q, k, v, kv_bias).reshape(b, s, hl)
+        elif cfg.attention_impl == "ring":
+            # sequence parallel: KV shards travel the ring of the seq axis
+            ctx = ring_attention(q, k, v, kv_bias, mesh=cfg.ring_mesh,
+                                 axis=cfg.ring_axis).reshape(b, s, hl)
         elif cfg.attention_impl == "blockwise":
             # the long-context path without the kernel: exact online softmax
             # over KV blocks, never the S x S scores at once
             ctx = blockwise_attention(
                 q, k, v, kv_bias, block_size=cfg.attention_block_size
-            ).reshape(b, s, h)
+            ).reshape(b, s, hl)
         else:
             # fp32 logits + softmax; bf16 probabilities and context
             scale = 1.0 / math.sqrt(hd)
@@ -355,8 +459,10 @@ class AlbertSelfAttention(nn.Module):
             logits = logits * scale + kv_bias[:, None, None, :]
             probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
             probs = dropout(probs, cfg.attention_dropout_prob, generator)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h)
-        out = dropout(self.dense(ctx), cfg.hidden_dropout_prob, generator)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, hl)
+        out = (self.dense(ctx) if mesh is None
+               else _row_parallel(self.dense, ctx, mesh, axis))
+        out = dropout(out, cfg.hidden_dropout_prob, generator)
         return self.layernorm(out, hidden)
 
 
@@ -396,11 +502,15 @@ class AlbertLayer(nn.Module):
             ffn, aux = self._moe_ffn(hidden)
         else:
             # named for the fused_ln* policies: the up-projection (gelu's
-            # input) and the gelu output (saved by fused_ln_gelu only)
-            ffn = self.ffn(hidden, "ffn_up")
+            # input) and the gelu output (saved by fused_ln_gelu only);
+            # under TP the up-projection is column-, the down row-parallel
+            mesh, axis = _tp(self.cfg)
+            ffn = (self.ffn(hidden, "ffn_up") if mesh is None else _column_parallel(
+                self.ffn, copy_to(hidden.float(), mesh, axis), "ffn_up"))
             with checkpoint_name("ffn_gelu"):
                 ffn = F.gelu(ffn, approximate="tanh")
-            ffn = self.ffn_output(ffn)
+            ffn = (self.ffn_output(ffn) if mesh is None
+                   else _row_parallel(self.ffn_output, ffn, mesh, axis))
         ffn = dropout(ffn, self.cfg.hidden_dropout_prob, generator)
         return self.layernorm(ffn, hidden), aux
 
@@ -421,7 +531,9 @@ class AlbertLayer(nn.Module):
         params = {"router": self.moe_router,
                   "wi": self.moe_wi.to(cfg.dtype),
                   "wo": self.moe_wo.to(cfg.dtype)}
-        y, aux = _moe.moe_ffn(params, hidden.reshape(b * s, h), self.moe_config())
+        y, aux = _moe.moe_ffn(params, hidden.reshape(b * s, h), self.moe_config(),
+                              mesh=cfg.moe_mesh or cfg.mesh, axis=cfg.moe_axis,
+                              rows=b)
         return y.reshape(b, s, h).to(cfg.dtype), aux
 
 
@@ -473,25 +585,69 @@ class AlbertEncoder(nn.Module):
                 losses: Optional[dict] = None):
         """``key``: the CPU dropout key (None: no dropout); each application
         draws its own seed from it. With experts, ``losses["moe_aux"]``
-        receives the aux loss summed over the applications."""
-        block = self.layer.block
-        if self.cfg.remat and torch.is_grad_enabled():
-            contexts = functools.partial(
-                create_selective_checkpoint_contexts,
-                remat_policy_object(self.cfg.remat_policy))
-            apply = lambda h: checkpoint(block, h, kv_bias, _draw_seed(key),
-                                         use_reentrant=False,
-                                         context_fn=contexts)
-        else:
-            apply = lambda h: block(h, kv_bias, _draw_seed(key))
+        receives the aux loss summed over the applications. With
+        ``pipe_mesh`` the applications run staged (``_pipelined``)."""
+        if self.cfg.pipe_mesh is not None:
+            return self._pipelined(hidden, kv_bias, key)
+        apply = self._application(key)
         auxes = []
         for _ in range(self.cfg.num_hidden_layers):
-            hidden, aux = apply(hidden)
+            hidden, aux = apply(hidden, kv_bias)
             if aux is not None:
                 auxes.append(aux)
         if auxes and losses is not None:
             losses["moe_aux"] = torch.stack(auxes).sum()
         return hidden
+
+    def _application(self, key):
+        """One application of the shared block, ``(hidden, kv_bias) ->
+        (hidden, aux)``: a selective checkpoint under ``cfg.remat`` (the
+        JAX package's ``nn.remat`` of the scanned layer; the backward
+        recomputes what the policy does not save)."""
+        block = self.layer.block
+        if self.cfg.remat and torch.is_grad_enabled():
+            contexts = functools.partial(
+                create_selective_checkpoint_contexts,
+                remat_policy_object(self.cfg.remat_policy))
+            return lambda h, b: checkpoint(block, h, b, _draw_seed(key),
+                                           use_reentrant=False,
+                                           context_fn=contexts)
+        return lambda h, b: block(h, b, _draw_seed(key))
+
+    def _pipelined(self, hidden, kv_bias, key):
+        """Pipeline-parallel forward: num_hidden_layers/stages applications
+        of the ONE shared block per stage, microbatches hopping stage to
+        stage (``parallel/pipeline.py``); the parameters are the scanned
+        path's, so checkpoints and gradient schemas are the same. Each
+        rank holds its data rows; the pipe axis splits no batch dim."""
+        from dedloc_tpu_torch.parallel.pipeline import pipeline_apply, shared_stage_fn
+
+        cfg = self.cfg
+        if key is not None:
+            raise ValueError(
+                "the pipeline path threads no dropout through its stages; "
+                "use dropout 0 (the reference recipe)")
+        n_stages = cfg.pipe_mesh.shape[cfg.pipe_axis]
+        b = hidden.shape[0]
+        m = cfg.pipe_microbatches or 2 * n_stages
+        if b % m:
+            raise ValueError(f"batch ({b}) must divide into "
+                             f"pipe_microbatches ({m})")
+        apply = self._application(None)
+
+        def block_fn(_params, xb):
+            h, bias = xb
+            return apply(h, bias)[0], bias
+
+        stage = shared_stage_fn(block_fn, cfg.num_hidden_layers // n_stages)
+        micro = (hidden.reshape((m, b // m) + hidden.shape[1:]),
+                 kv_bias.reshape((m, b // m) + kv_bias.shape[1:]))
+        # the block's parameters as this forward holds them (functional_call
+        # swaps them in): the pipeline's node routes their gradients
+        params = dict(self.layer.block.named_parameters())
+        out, _ = pipeline_apply(stage, params, micro, cfg.pipe_mesh,
+                                axis=cfg.pipe_axis, stacked_params=False)
+        return out.reshape(hidden.shape)
 
 
 class AlbertModel(nn.Module):
@@ -531,8 +687,10 @@ class AlbertModel(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        positions = torch.arange(s, device=input_ids.device)
-        emb = (self.word_embeddings(input_ids)
+        # under sequence parallelism this rank holds positions from
+        # rank x S/sp on
+        positions = torch.arange(s, device=input_ids.device) + seq_offset(cfg, s)
+        emb = (self._word_embedding(input_ids)
                + self.position_embeddings(positions)[None]
                + self.token_type_embeddings(token_type_ids))
         emb = self.embeddings_layernorm(emb)
@@ -543,6 +701,18 @@ class AlbertModel(nn.Module):
         hidden = self.encoder(hidden, kv_bias, key, losses)
         pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled
+
+    def _word_embedding(self, ids: torch.Tensor) -> torch.Tensor:
+        """The lookup; under TP vocab-parallel: this rank's rows of the
+        table, ids outside them masked, summed over the model axis."""
+        mesh, axis = _tp(self.cfg)
+        if mesh is None:
+            return self.word_embeddings(ids)
+        rows = self.word_embeddings.weight.shape[0]
+        local = ids.long() - mesh.axis_index(axis) * rows
+        inside = (local >= 0) & (local < rows)
+        emb = F.embedding(local.clamp(0, rows - 1), self.word_embeddings.weight)
+        return psum(emb * inside[..., None], mesh, axis)
 
 
 class AlbertForPreTraining(nn.Module):
@@ -571,13 +741,20 @@ class AlbertForPreTraining(nn.Module):
         hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
                                      deterministic, generator, losses)
         if mlm_positions is not None:
-            idx = mlm_positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
+            # under sequence parallelism the positions outside this rank's
+            # shard read a clamped row (the loss masks them)
+            pos, _inside = local_positions(cfg, mlm_positions, hidden.shape[1])
+            idx = pos[..., None].expand(-1, -1, hidden.shape[-1])
             hidden = torch.gather(hidden, 1, idx)
         x = F.gelu(self.mlm_dense(hidden), approximate="tanh")
         x = self.mlm_layernorm(x).to(cfg.dtype)
         table = self.albert.word_embeddings.weight.to(cfg.dtype)
-        # bf16 operands, fp32 accumulation (preferred_element_type=f32)
-        mlm_logits = x.float() @ table.float().t() + self.mlm_bias
+        # bf16 operands, fp32 accumulation (preferred_element_type=f32);
+        # under TP each rank's vocab block, all-gathered into the logits
+        mesh, axis = _tp(cfg)
+        # (the fp32 input's gradient: the ranks' partials summed unrounded)
+        mlm_logits = copy_to(x.float(), mesh, axis) @ table.float().t() + self.mlm_bias
+        mlm_logits = gather(mlm_logits, mesh, axis, dim=-1)
         sop_logits = self.sop_classifier(pooled).float()
         return mlm_logits, sop_logits
 

@@ -22,6 +22,14 @@ port's tensor is the JAX array under the inverse permutation
 ``params_to_jax(params_from_jax(named))`` gives back the same names, shapes,
 dtypes and values exactly.
 
+On a slice mesh (``parallel/mesh.py``) a rank holds blocks of the sharded
+leaves: ``params_from_jax_sharded`` cuts full JAX parameters straight to a
+rank's blocks by the TP/EP rules (``parallel/sharding.py``),
+``params_to_jax_gathered`` assembles the full JAX dict from every rank's
+blocks (a collective), and ``shard_named`` / ``gather_named`` do the same
+for any named JAX-layout arrays under specs in the JAX layout (the shared
+state's parameters and moments).
+
 The shared state a peer serves and loads is the flattened
 ``(params, opt_state)`` pair of the JAX trainer, named as
 ``collaborative/optimizer.py`` ``_tree_to_named`` names it: params under
@@ -277,3 +285,52 @@ def lars_state_from_jax(named: Mapping[str, np.ndarray]):
         raise KeyError("no lars schedule count in the state")
     return params_from_jax(params), LarsState(
         momentum=params_from_jax(momentum), schedule_count=count)
+
+
+# ------------------------------------------------------------ slice shards
+
+
+def shard_named(named: Mapping[str, np.ndarray], specs: Mapping, mesh) -> Dict[str, np.ndarray]:
+    """This rank's block of each JAX-layout array (specs in the JAX layout;
+    a name without one is replicated)."""
+    from dedloc_tpu_torch.parallel.mesh import local_block
+
+    out = {}
+    for name, arr in named.items():
+        a = np.asarray(arr)
+        spec = specs.get(name, ())
+        out[name] = np.ascontiguousarray(a[local_block(a.shape, spec, mesh)]) if spec else a
+    return out
+
+
+def gather_named(named: Mapping[str, torch.Tensor], specs: Mapping, mesh) -> Dict[str, torch.Tensor]:
+    """The full JAX-layout tensors from every rank's blocks (an all-gather
+    along each split dim; every rank of the mesh calls it, names in the
+    same order)."""
+    from dedloc_tpu_torch.parallel.sharding import gather_tensor
+
+    return {name: gather_tensor(t, specs.get(name, ()), mesh)
+            for name, t in named.items()}
+
+
+def params_from_jax_sharded(named: Mapping[str, np.ndarray], mesh, rules) -> Dict[str, torch.Tensor]:
+    """Full JAX parameters -> this rank's blocks of the port's
+    ``state_dict`` (CPU tensors), cut by ``rules``."""
+    from dedloc_tpu_torch.parallel.sharding import spec_for_path
+
+    specs = {name: spec_for_path(keystr(jax_path(name)), rules) for name in named}
+    return params_from_jax(shard_named(named, specs, mesh))
+
+
+def params_to_jax_gathered(params: Mapping[str, torch.Tensor], mesh, rules) -> Dict[str, np.ndarray]:
+    """This rank's blocks of the port's parameters (or of tensors shaped
+    like them, e.g. gradients) -> the full JAX leaf dict; a collective."""
+    from dedloc_tpu_torch.parallel.sharding import spec_for_path
+
+    views, specs = {}, {}
+    for name, t in params.items():
+        keys, perm = jax_keys(name, t.ndim)
+        views[keystr(keys)] = to_jax_layout(t.detach(), perm).contiguous()
+        specs[keystr(keys)] = spec_for_path(keystr(keys), rules)
+    return {k: np.array(v.cpu().numpy(), order="C")
+            for k, v in gather_named(views, specs, mesh).items()}

@@ -53,9 +53,16 @@ def albert_weight_decay_mask(params: Params) -> Dict[str, bool]:
     return out
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
+def _sq(x: torch.Tensor, name: str, reduce=None) -> torch.Tensor:
+    """``sum(x * x)`` in fp32; with ``reduce`` (a sharded leaf), summed
+    over the ranks that hold the rest of the leaf."""
     x = x.float()
-    return torch.sqrt((x * x).sum())
+    sq = (x * x).sum()
+    return sq if reduce is None else reduce(name, sq)
+
+
+def _norm(x: torch.Tensor, name: str = "", reduce=None) -> torch.Tensor:
+    return torch.sqrt(_sq(x, name, reduce))
 
 
 def bias_corrections(b1: float, b2: float, count):
@@ -119,12 +126,12 @@ class Lamb:
             return lr(count) if callable(lr) else float(np.float32(lr))
         return float(np.float32(lr(count) if callable(lr) else lr))
 
-    def _clip(self, grads: Params) -> Dict[str, torch.Tensor]:
+    def _clip(self, grads: Params, reduce=None) -> Dict[str, torch.Tensor]:
         if self.max_grad_norm is None:
             return dict(grads)
         total = None
-        for g in grads.values():
-            sq = (g.float() * g.float()).sum()
+        for n, g in grads.items():
+            sq = _sq(g, n, reduce)
             total = sq if total is None else total + sq
         g_norm = torch.sqrt(total)
         keep = g_norm < self.max_grad_norm
@@ -134,9 +141,13 @@ class Lamb:
         }
 
     @torch.no_grad()
-    def update(self, grads: Params, state: LambState, params: Params):
+    def update(self, grads: Params, state: LambState, params: Params,
+               reduce=None):
+        """``reduce(name, partial_sq)``: for shards of a leaf (ZeRO, tensor
+        or expert parallel), the sum of the ranks' partial squared norms,
+        so the clip and the trust ratio see the whole leaf's norms."""
         b1, b2 = self.b1, self.b2
-        grads = self._clip(grads)
+        grads = self._clip(grads, reduce)
         count = state.count + 1
         bc1, bc2 = bias_corrections(b1, b2, count)
         decay = albert_weight_decay_mask(params)
@@ -150,7 +161,8 @@ class Lamb:
             w = params[n]
             if self.weight_decay > 0.0 and decay[n]:
                 u = u + self.weight_decay * w
-            u = u * trust_ratio_scale(_norm(w), _norm(u), self.clamp_value)
+            u = u * trust_ratio_scale(_norm(w, n, reduce), _norm(u, n, reduce),
+                                      self.clamp_value)
             updates[n] = step_size * u
         return updates, LambState(count=count, mu=new_mu, nu=new_nu,
                                   schedule_count=state.schedule_count + 1)

@@ -1,8 +1,6 @@
 """Switch-style mixture-of-experts FFN (top-1 routing), in PyTorch.
 
-Port of ``dedloc_tpu/parallel/moe.py`` for one device (``mesh=None``); the
-expert-parallel axis comes with the parallel-axes slice. The numerics follow
-the JAX layer:
+Port of ``dedloc_tpu/parallel/moe.py``. The numerics follow the JAX layer:
 
 - router logits ``x.float() @ router`` in fp32 (TF32 off: routing is
   discrete, and a TF32 product would send tokens to other experts), softmax
@@ -24,6 +22,19 @@ one-hot masks and contracts them with einsums; every such sum has one
 nonzero term, so the values are the same and the masks' products are not
 done. ``moe_ffn_dense`` is that einsum formulation, the plain version the
 tests hold the index dispatch to (bitwise in fp32).
+
+On a slice mesh (``mesh``, ``parallel/mesh.py``) the layer computes what
+the JAX layer computes on the slice's whole ``[T_slice, H]`` under GSPMD:
+
+- the capacity is ``ceil(T_slice / E * capacity_factor)`` and a token's
+  position is its running count in the slice's batch-major order, across
+  the data and seq shards: an exclusive prefix of the per-expert counts of
+  the ranks' rows and sequence chunks (``route``'s ``rows``);
+- the aux loss takes the slice's means (sums over the data and seq axes);
+- with an ``expert`` axis each rank holds E/ep experts, fills only its
+  experts' slots and combines only its experts' outputs; the combine is
+  summed over the axis, and the gradients of x and of the gate are summed
+  over it in the backward (``copy_to``). The router stays replicated.
 """
 from __future__ import annotations
 
@@ -33,6 +44,15 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from dedloc_tpu_torch.parallel.mesh import (
+    PartitionSpec as P,
+    all_gather,
+    all_reduce,
+    copy_to,
+    psum,
+)
+from dedloc_tpu_torch.utils.device import divide
 
 Params = Dict[str, torch.Tensor]
 
@@ -92,11 +112,40 @@ class Routing(NamedTuple):
     capacity: int
 
 
-def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig) -> Routing:
-    """Top-1 routing of the tokens ``x [T, H]`` in their order."""
+#: The axes that hold the slice's other tokens.
+TOKEN_AXES = ("data", "seq")
+
+
+def _token_shards(mesh) -> int:
+    return 1 if mesh is None else mesh.axis_size(TOKEN_AXES)
+
+
+def _slice_offsets(counts: torch.Tensor, mesh) -> torch.Tensor:
+    """``counts [E, R]`` (this rank's tokens per expert in each of its R
+    rows) -> the count of each expert's tokens before each row's chunk in
+    the slice's batch-major order: rows by data shard, then row, then the
+    row's sequence chunks by seq shard."""
+    e, r = counts.shape
+    dp = mesh.axis_size("data") if "data" in mesh.shape else 1
+    sp = mesh.axis_size("seq") if "seq" in mesh.shape else 1
+    every = all_gather(counts[None], mesh, TOKEN_AXES, dim=0)  # [dp*sp, E, R]
+    every = every.view(dp, sp, e, r).permute(0, 3, 1, 2).reshape(-1, e)
+    before = torch.cumsum(every, dim=0) - every  # exclusive, slice order
+    before = before.view(dp, r, sp, e)
+    mine = before[mesh.axis_index("data"), :, mesh.axis_index("seq")]
+    return mine.t()  # [E, R]
+
+
+def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
+          mesh=None, rows: int = 1) -> Routing:
+    """Top-1 routing of the tokens ``x [T, H]`` in their order. On a
+    ``mesh`` with data or seq shards, ``x`` is this rank's part of the
+    slice's tokens, ``rows`` batch rows of ``T / rows`` positions each, and
+    capacity, positions and aux are the slice's."""
     t = x.shape[0]
     e = cfg.num_experts
-    capacity = capacity_for(t, cfg)
+    shards = _token_shards(mesh)
+    capacity = capacity_for(t * shards, cfg)
     check_ieee_fp32(x.device)
     logits = x.float() @ router.float()
     gates = torch.softmax(logits, dim=-1)
@@ -107,17 +156,20 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig) -> Routing:
     # outer-dim scan of [T, E] took ~1 ms at T = 6144, E = 8). The counts are
     # fp32 as the reference's, and exact in any order below 2^24 tokens
     assign = F.one_hot(expert, e).t().contiguous().float()
-    position = torch.cumsum(assign, dim=1).gather(0, expert[None])[0] - 1.0
+    if shards == 1:
+        position = torch.cumsum(assign, dim=1).gather(0, expert[None])[0] - 1.0
+        aux = e * torch.sum(assign.mean(1) * gates.mean(0))
+    else:
+        chunks = assign.view(e, rows, t // rows)
+        offsets = _slice_offsets(chunks.sum(2), mesh)
+        running = torch.cumsum(chunks, dim=2) + offsets[..., None]
+        position = running.view(e, t).gather(0, expert[None])[0] - 1.0
+        n = t * shards
+        density = divide(all_reduce(assign.sum(1), mesh, TOKEN_AXES), n)
+        proxy = divide(psum(gates.sum(0), mesh, TOKEN_AXES), n)
+        aux = e * torch.sum(density * proxy)
     keep = position < capacity
-    aux = e * torch.sum(assign.mean(1) * gates.mean(0))
     return Routing(gates, expert, gate, position.long(), keep, aux, capacity)
-
-
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn with a mesh (experts sharded over an expert axis) comes "
-            "with the parallel-axes slice of the port (ROADMAP A6)")
 
 
 def experts(params: Params, expert_in: torch.Tensor, dtype) -> torch.Tensor:
@@ -126,49 +178,84 @@ def experts(params: Params, expert_in: torch.Tensor, dtype) -> torch.Tensor:
     return torch.bmm(F.gelu(h, approximate="tanh"), params["wo"].to(dtype))
 
 
-def slots(r: Routing) -> torch.Tensor:
-    """Each token's row of the flattened ``[E * C]`` expert buffer, and for a
-    dropped token the spare row ``E * C`` past its end."""
-    spare = r.gates.shape[1] * r.capacity
-    return torch.where(r.keep, r.expert * r.capacity + r.position,
-                       torch.full_like(r.position, spare))
+def _local(r: Routing, first: int, n: int) -> torch.Tensor:
+    """Kept tokens routed to experts ``[first, first + n)``."""
+    if first == 0 and n == r.gates.shape[1]:
+        return r.keep
+    return r.keep & (r.expert >= first) & (r.expert < first + n)
 
 
-def dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig) -> torch.Tensor:
-    """``[T, H] -> [E, C, H]``: each kept token copied into its slot, the
-    slots no token took zero. The dropped tokens all land in the spare row,
-    which is cut off (so which of them lands last does not matter)."""
-    e, c, h = cfg.num_experts, r.capacity, x.shape[1]
-    buf = x.new_zeros((e * c + 1, h), dtype=cfg.dtype)
-    buf = buf.index_copy(0, slots(r), x.to(cfg.dtype))
-    return buf[:-1].view(e, c, h)
+def slots(r: Routing, first: int = 0, n: Optional[int] = None) -> torch.Tensor:
+    """Each token's row of the flattened ``[n * C]`` buffer of experts
+    ``[first, first + n)`` (all by default), and for a token not kept there
+    the spare row ``n * C`` past its end."""
+    n = r.gates.shape[1] if n is None else n
+    return torch.where(_local(r, first, n),
+                       (r.expert - first) * r.capacity + r.position,
+                       torch.full_like(r.position, n * r.capacity))
 
 
-def combine(expert_out: torch.Tensor, r: Routing, cfg: MoEConfig) -> torch.Tensor:
-    """``[E, C, H] -> [T, H]``: each kept token's expert output times its
-    gate rounded to ``cfg.dtype``; a dropped token reads the zero spare row."""
+def dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig, first: int = 0,
+             n: Optional[int] = None) -> torch.Tensor:
+    """``[T, H] -> [n, C, H]``: each kept token of experts ``[first, first +
+    n)`` copied into its slot, the slots no token took zero. The other
+    tokens all land in the spare row, which is cut off (so which of them
+    lands last does not matter)."""
+    n = cfg.num_experts if n is None else n
+    c, h = r.capacity, x.shape[1]
+    buf = x.new_zeros((n * c + 1, h), dtype=cfg.dtype)
+    buf = buf.index_copy(0, slots(r, first, n), x.to(cfg.dtype))
+    return buf[:-1].view(n, c, h)
+
+
+def combine(expert_out: torch.Tensor, r: Routing, cfg: MoEConfig,
+            first: int = 0, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[n, C, H] -> [T, H]``: each kept token's expert output times its
+    gate rounded to ``cfg.dtype``; a token of no expert here reads the zero
+    spare row."""
+    n = expert_out.shape[0]
     flat = expert_out.reshape(-1, expert_out.shape[-1])
     flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
-    weight = (r.gate * r.keep).to(cfg.dtype)
-    return flat.index_select(0, slots(r)) * weight[:, None]
+    gate = r.gate if gate is None else gate
+    weight = (gate * _local(r, first, n)).to(cfg.dtype)
+    return flat.index_select(0, slots(r, first, n)) * weight[:, None]
+
+
+def expert_param_sharding(mesh=None, axis: str = "expert") -> Dict[str, P]:
+    """Specs of ``init_moe_params``' output: experts split over ``axis``,
+    the router replicated."""
+    return {"router": P(), "wi": P(axis), "wo": P(axis)}
 
 
 def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig,
-            mesh: Optional[object] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mesh: Optional[object] = None, axis: str = "expert",
+            rows: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(y [T, H], aux_loss)`` for the tokens ``x [T, H]`` (flatten batch x
-    seq first, batch-major). Over-capacity tokens give zeros."""
-    _check_mesh(mesh)
-    r = route(params["router"], x, cfg)
-    y = combine(experts(params, dispatch(x, r, cfg), cfg.dtype), r, cfg)
+    seq first, batch-major). Over-capacity tokens give zeros. On a ``mesh``
+    (the module docstring): ``x`` is this rank's ``rows`` rows of the
+    slice's tokens, and with an ``axis`` of more than one rank ``params``
+    holds this rank's block of experts."""
+    r = route(params["router"], x, cfg, mesh, rows)
+    ep = mesh.shape.get(axis, 1) if mesh is not None else 1
+    if ep == 1:
+        y = combine(experts(params, dispatch(x, r, cfg), cfg.dtype), r, cfg)
+        return y.to(x.dtype), r.aux
+    n = cfg.num_experts // ep
+    first = mesh.axis_index(axis) * n
+    xe = copy_to(x, mesh, axis)
+    gate = copy_to(r.gate, mesh, axis)
+    out = experts(params, dispatch(xe, r, cfg, first, n), cfg.dtype)
+    y = psum(combine(out, r, cfg, first, gate), mesh, axis)
     return y.to(x.dtype), r.aux
 
 
 def moe_ffn_dense(params: Params, x: torch.Tensor, cfg: MoEConfig,
                   mesh: Optional[object] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: the reference's ``[T, E, C]`` dispatch and combine
-    masks and its three einsums, term for term."""
-    _check_mesh(mesh)
+    """The plain version on one device: the reference's ``[T, E, C]``
+    dispatch and combine masks and its three einsums, term for term."""
+    if mesh is not None:
+        raise ValueError("moe_ffn_dense is the one-device plain version")
     r = route(params["router"], x, cfg)
     assign = F.one_hot(r.expert, cfg.num_experts).float()
     in_capacity = r.keep[:, None] & (assign > 0)

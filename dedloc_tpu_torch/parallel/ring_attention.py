@@ -10,9 +10,8 @@ holds more than one ``[B, H, S, block]`` score block at a time.
 the running max and sum and the accumulator are fp32; probabilities are
 rounded to v's dtype before ``p . v``.
 
-``ring_attention`` (sequence parallel across devices) comes with the
-parallel-axes slice; until then ``attention_impl="ring"`` raises in
-``models/albert.py``.
+``ring_attention`` is the sequence-parallel variant over a slice mesh's
+``seq`` axis: KV shards rotate around the ring of ranks.
 """
 from __future__ import annotations
 
@@ -89,3 +88,36 @@ def dense_attention(q, k, v, bias: Optional[torch.Tensor] = None) -> torch.Tenso
     """Reference O(S^2) attention for testing equivalence."""
     s = _add_bias(divide(_qk(q, k), math.sqrt(q.shape[-1])), bias)
     return _pv(torch.softmax(s, dim=-1), v).to(q.dtype)
+
+
+def ring_attention(
+    q: torch.Tensor,  # [B, S/n, H, D]: this rank's queries
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # [B, S/n] this rank's key bias
+    *,
+    mesh,
+    axis: str = "seq",
+) -> torch.Tensor:
+    """Sequence-parallel exact attention over the ring of ``axis``: each
+    rank holds S/n positions of q, k, v and the key bias, accumulates the
+    online softmax of its queries against its own KV shard, passes the
+    shard to the next rank (``ppermute``) and repeats, n blocks in all.
+    Never more than one ``[B, H, S/n, S/n]`` score block at a time; the
+    gradient of each hop is the reverse hop. Plain PyTorch: the JAX ring
+    reaches no kernel either."""
+    from dedloc_tpu_torch.parallel.mesh import ppermute
+
+    n = mesh.shape[axis]
+    b, s_l, h, d = q.shape
+    acc = torch.zeros((b, s_l, h, d), device=q.device, dtype=torch.float32)
+    row_max = torch.full((b, s_l, h), NEG_INF, device=q.device, dtype=torch.float32)
+    row_sum = torch.zeros((b, s_l, h), device=q.device, dtype=torch.float32)
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    for i in range(n):
+        acc, row_max, row_sum = _block_update(q, k, v, bias, acc, row_max, row_sum)
+        if i < n - 1:  # the last block needs no further hop
+            k, v = ppermute(k, mesh, axis, perm), ppermute(v, mesh, axis, perm)
+            if bias is not None:
+                bias = ppermute(bias, mesh, axis, perm)
+    return (acc / row_sum[..., None]).to(q.dtype)

@@ -1,8 +1,7 @@
-"""Train-step builders: local accumulation vs global apply, single device.
+"""Train-step builders: local accumulation vs global apply.
 
-Port of ``dedloc_tpu/parallel/train_step.py`` (mesh and sharding arguments
-wait for later slices). The collaborative loop splits one step into two
-phases with different cadences:
+Port of ``dedloc_tpu/parallel/train_step.py``. The collaborative loop
+splits one step into two phases with different cadences:
 
   accumulate — per micro-batch: forward/backward, fp32 gradients summed into
                a persistent accumulator, plus a micro-batch counter.
@@ -20,6 +19,15 @@ where ``params`` maps parameter names to tensors (``roles.common.
 build_loss_fn`` makes one). JAX's arrays are immutable; here the gradient
 accumulator and the parameters are updated in place, which is what JAX's
 buffer donation achieves, so the states passed in are the states returned.
+
+On a slice mesh (``parallel/mesh.py``) each rank holds its blocks of the
+parameters (``param_sharding``: tensor and expert parallel leaves) and of
+the moments (``opt_state_sharding``: the same, plus ZeRO-1 over the data
+axis). A rank's accumulator sums the part of each gradient that comes
+from its own rows, positions or stages (the loss is the slice's global
+mean, ``roles/common.py`` ``build_loss_fn``); ``reduce_grads`` sums those
+parts over the batch axes, and the mesh applies take the reduced
+gradients in the parameters' layout (``mesh_update``).
 """
 from __future__ import annotations
 
@@ -29,6 +37,13 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from dedloc_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    PartitionSpec as P,
+    all_finite,
+    all_reduce,
+    local_block,
+)
 from dedloc_tpu_torch.utils.device import divide
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -65,7 +80,12 @@ def make_accumulate_step(loss_fn: LossFn) -> Callable:
 
     ``grad_acc`` holds the running SUM of per-micro-batch mean gradients in
     fp32 (added to in place); ``n_acc`` counts micro-batches so the caller
-    can normalize before averaging/apply."""
+    can normalize before averaging/apply.
+
+    On a slice mesh the batch is this rank's part (``mesh.put_batch``), the
+    collectives are in ``loss_fn``'s model and loss (so the JAX step's mesh
+    arguments have nothing to do here), and the sum is of this rank's parts
+    of the gradients: ``reduce_grads`` completes it."""
 
     def step(params, grad_acc, n_acc: int, batch, rng: Optional[torch.Generator] = None):
         grads, metrics = _grads(loss_fn, params, batch, rng)
@@ -77,9 +97,113 @@ def make_accumulate_step(loss_fn: LossFn) -> Callable:
     return step
 
 
-def make_apply_step(tx) -> Callable:
+def _flat_all_reduce(grads: Dict[str, torch.Tensor], names, mesh, axes) -> None:
+    """``grads[n]`` for ``n`` in ``names`` summed over ``axes`` in place of
+    the dict's entries: one all-reduce of one flat fp32 buffer."""
+    flat = all_reduce(torch.cat([grads[n].float().reshape(-1) for n in names]),
+                      mesh, axes)
+    offset = 0
+    for n in names:
+        size = grads[n].numel()
+        grads[n] = flat[offset:offset + size].view(grads[n].shape)
+        offset += size
+
+
+@torch.no_grad()
+def reduce_grads(grads: Mapping[str, torch.Tensor], mesh,
+                 param_sharding=None) -> Dict[str, torch.Tensor]:
+    """Each rank's parts of the gradients summed over the batch axes (data,
+    seq, pipe); a new dict. A leaf replicated over the ``model`` or
+    ``expert`` axis is computed alike on its ranks there, but a kernel
+    that sums in an order of its own (an atomic add) may round otherwise
+    on each: with ``param_sharding`` (the specs, JAX layout) those leaves
+    take their mean over the axis, so every rank applies the same bits."""
+    out = {n: g.float().clone() for n, g in grads.items()}
+    if mesh is None:
+        return out
+    if mesh.group(BATCH_AXES) is not None:
+        _flat_all_reduce(out, list(out), mesh, BATCH_AXES)
+    if param_sharding is not None:
+        for axis in ("model", "expert"):
+            if mesh.group(axis) is None:
+                continue
+            names = [n for n in out if axis not in param_sharding.get(n, ())]
+            if names:
+                _flat_all_reduce(out, names, mesh, axis)
+                for n in names:
+                    out[n] = divide(out[n], mesh.shape[axis])
+    return out
+
+
+def _leaf_axes(spec) -> Tuple[str, ...]:
+    return tuple(a for a in spec if a is not None)
+
+
+def mesh_update(tx, grads, opt_state, params, mesh, param_sharding=None,
+                opt_state_sharding=None):
+    """One LAMB update on this rank's blocks, out of place: (new params in
+    the parameters' layout, new optimizer state).
+
+    ``grads`` and ``params`` are this rank's parameter blocks (reduced
+    gradients); ``param_sharding``/``opt_state_sharding`` their specs
+    (JAX layout; None: replicated parameters, moments as the parameters).
+    Under ZeRO each rank updates its moment block, on the matching block
+    of the gradient and parameter; the clip and the trust ratio sum the
+    partial squared norms over each leaf's axes, and the new parameter
+    blocks are all-gathered back over the ZeRO axis. Every rank of a
+    leaf's group computes the same values, so replicated leaves and the
+    optimizer state stay bitwise equal across the slice."""
+    from dedloc_tpu_torch.optim.lamb import LambState
+    from dedloc_tpu_torch.parallel.sharding import gather_tensor, port_spec
+    from dedloc_tpu_torch.parallel.zero import zero_part
+
+    if not isinstance(opt_state, LambState):
+        raise NotImplementedError(
+            "the mesh apply is LAMB's; the SwAV (LARS) mesh is a later slice")
+    pspecs = param_sharding or {}
+    mspecs = opt_state_sharding.mu if opt_state_sharding is not None else pspecs
+    zparts, axes = {}, {}
+    for n, p in params.items():
+        m = mspecs.get(n, P())
+        zparts[n] = zero_part(n, p.ndim, m, pspecs.get(n, P()))
+        axes[n] = _leaf_axes(port_spec(n, p.ndim, m))
+    blocks = {n: local_block(p.shape, zparts[n], mesh) for n, p in params.items()}
+    g_z = {n: g[blocks[n]] for n, g in grads.items()}
+    w_z = {n: p[blocks[n]] for n, p in params.items()}
+
+    def reduce(name, sq):
+        return all_reduce(sq, mesh, axes[name]) if axes[name] else sq
+
+    updates, new_opt = tx.update(g_z, opt_state, w_z, reduce=reduce)
+    new_params = {}
+    for n, w in w_z.items():
+        new = w + updates[n]
+        new_params[n] = (gather_tensor(new, zparts[n], mesh)
+                         if _leaf_axes(zparts[n]) else new)
+    return new_params, new_opt
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def make_apply_step(tx, mesh=None, opt_state_sharding=None,
+                    param_sharding=None) -> Callable:
     """(state, mean_grads) -> state'. Runs once per global step; the
-    parameters are updated in place (``p + u`` in the parameter dtype)."""
+    parameters are updated in place (``p + u`` in the parameter dtype).
+    On a mesh: ``mesh_update`` on this rank's blocks."""
+    if _sharded(mesh):
+        @torch.no_grad()
+        def mesh_apply(state: TrainState, grads) -> TrainState:
+            new_params, new_opt = mesh_update(
+                tx, grads, state.opt_state, state.params, mesh,
+                param_sharding, opt_state_sharding)
+            for n, p in state.params.items():
+                p.copy_(new_params[n])
+            return TrainState(step=state.step + 1, params=state.params,
+                              opt_state=new_opt)
+
+        return mesh_apply
 
     def apply(state: TrainState, grads) -> TrainState:
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
@@ -101,12 +225,16 @@ def add_micro_grads(grad_acc: Dict[str, torch.Tensor], grads,
         grad_acc[n].add_(divide(g.float(), grad_accum_steps))
 
 
-def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1) -> Callable:
+def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1,
+                          mesh=None, opt_state_sharding=None,
+                          param_sharding=None) -> Callable:
     """Single-peer fused step: micro-batches, then the optimizer apply.
 
     Batch leaves have shape [grad_accum_steps, per_step_batch, ...]; each
-    micro-batch adds ``g / grad_accum_steps`` to the fp32 accumulator."""
-    apply = make_apply_step(tx)
+    micro-batch adds ``g / grad_accum_steps`` to the fp32 accumulator. On
+    a mesh the batch is this rank's part, the accumulator is reduced over
+    the batch axes before the apply, and the apply is ``mesh_update``."""
+    apply = make_apply_step(tx, mesh, opt_state_sharding, param_sharding)
 
     def train_step(state: TrainState, batch, rng: Optional[torch.Generator] = None):
         grad_acc = zeros_like_grads(state.params)
@@ -118,17 +246,11 @@ def make_local_train_step(loss_fn: LossFn, tx, grad_accum_steps: int = 1) -> Cal
             per_micro.append(metrics)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
+        if _sharded(mesh):
+            grad_acc = reduce_grads(grad_acc, mesh, param_sharding)
         return apply(state, grad_acc), metrics
 
     return train_step
-
-
-def _no_mesh(mesh, opt_state_sharding, param_sharding) -> None:
-    if mesh is not None or opt_state_sharding is not None or param_sharding is not None:
-        raise NotImplementedError(
-            "mesh, opt_state_sharding and param_sharding come with the "
-            "parallel-axes slice (ROADMAP, queue A); the port applies on one "
-            "device")
 
 
 def _device_count(x, device: torch.device) -> torch.Tensor:
@@ -186,20 +308,33 @@ def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
     back bitwise unchanged. Generic over the optimizer's state (``Lamb``'s
     moments and counts, ``Lars``'s momentum and count). No full copy of the
     state is taken and nothing waits on the host; the caller reads ``ok``
-    later."""
-    _no_mesh(mesh, opt_state_sharding, param_sharding)
+    later.
+
+    On a mesh the update is ``mesh_update`` on this rank's blocks and
+    ``ok`` is the verdict of the whole slice (every rank's new blocks
+    finite), the same bool on every rank."""
+    sharded = _sharded(mesh)
+    if sharded and post_apply is not None:
+        raise NotImplementedError(
+            "post_apply on a mesh is the SwAV mesh's, a later slice")
 
     @torch.no_grad()
     def apply(state: TrainState, grads):
         device = next(iter(state.params.values())).device
         state = _with_device_counts(state, device)
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
-        new = TrainState(step=state.step + 1,
-                         params={n: p + updates[n] for n, p in state.params.items()},
+        if sharded:
+            new_params, new_opt = mesh_update(
+                tx, grads, state.opt_state, state.params, mesh,
+                param_sharding, opt_state_sharding)
+        else:
+            updates, new_opt = tx.update(grads, state.opt_state, state.params)
+            new_params = {n: p + updates[n] for n, p in state.params.items()}
+        new = TrainState(step=state.step + 1, params=new_params,
                          opt_state=new_opt)
         if post_apply is not None:
             new = post_apply(new)
-        ok = _all_finite(new.params.values())
+        ok = (all_finite(new.params.values(), mesh) if sharded
+              else _all_finite(new.params.values()))
         for n, p in state.params.items():
             p.copy_(torch.where(ok, new.params[n], p))
         step = torch.where(ok, new.step, state.step)

@@ -55,13 +55,27 @@ def build_model(
     moe_experts: int = 0,
     moe_capacity_factor: float = 0.0,
     moe_aux_weight: float = -1.0,
+    ring_mesh=None,
+    pipe_mesh=None,
+    pipe_microbatches: int = 0,
+    moe_mesh=None,
+    mesh=None,
 ) -> Tuple[AlbertConfig, AlbertForPreTraining]:
     """(config, model with random weights drawn from ``seed``) on ``device``
     (the card by default; ``"meta"`` gives shapes without storage). The MoE
-    overrides apply as in the JAX builder; its mesh arguments come with the
-    parallel-axes slice."""
+    overrides and the mesh arguments apply as in the JAX builder, plus
+    ``mesh`` (the slice, whose ``model`` axis is tensor parallelism; see
+    ``models/albert.py``). On a mesh the weights are drawn whole, the same
+    on every rank, and cut to this rank's blocks by the TP/EP rules
+    (``parallel/sharding.py``)."""
     dev = resolve_device(device)
     overrides = {}
+    for key, value in (("ring_mesh", ring_mesh), ("pipe_mesh", pipe_mesh),
+                       ("moe_mesh", moe_mesh), ("mesh", mesh)):
+        if value is not None:
+            overrides[key] = value
+    if pipe_microbatches:
+        overrides["pipe_microbatches"] = pipe_microbatches
     if remat_policy:
         overrides["remat_policy"] = remat_policy
         overrides["fused_ln"] = fused_ln_for_policy(remat_policy)
@@ -81,6 +95,10 @@ def build_model(
             return cfg, AlbertForPreTraining(cfg)
     model = AlbertForPreTraining(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if mesh is not None and mesh.size > 1:
+        from dedloc_tpu_torch.parallel.sharding import rules_for, shard_module
+
+        shard_module(model, mesh, rules_for(mesh))
     return cfg, model.to(dev)
 
 
@@ -243,8 +261,12 @@ def build_loss_fn(model: AlbertForPreTraining) -> Callable:
     when the batch carries ``mlm_positions``; dense per-position otherwise.
     With an MoE config the Switch load-balancing aux loss is added at
     ``cfg.moe_aux_weight`` and reported as ``moe_aux``. ``rng`` is accepted
-    for the JAX signature: the recipe has no dropout."""
+    for the JAX signature: the recipe has no dropout. On a slice mesh
+    (``cfg.mesh``): ``_slice_loss_fn``."""
     moe = model.cfg.moe_experts > 0
+    mesh = model.cfg.mesh
+    if mesh is not None and mesh.size > 1:
+        return _slice_loss_fn(model, mesh)
 
     def loss_fn(params, batch, rng: Optional[torch.Generator] = None):
         gathered = "mlm_positions" in batch
@@ -269,6 +291,73 @@ def build_loss_fn(model: AlbertForPreTraining) -> Callable:
             loss = loss + model.cfg.moe_aux_weight * aux
             metrics = dict(metrics, moe_aux=aux)
         return loss, metrics
+
+    return loss_fn
+
+
+def _slice_loss_fn(model: AlbertForPreTraining, mesh) -> Callable:
+    """The loss of a slice rank: the slice's global MLM and SOP means, each
+    the ``psum`` of this rank's sums over the masked tokens (or samples)
+    divided by the ``psum`` of its counts, never a mean of the ranks' means
+    (ranks hold different numbers of masked tokens; under sequence
+    parallelism different positions, and the SOP sample's pooled token on
+    the first seq rank only). Every rank gets the global value; its
+    backward gives its part of each gradient (``parallel/mesh.py``). Under
+    the pipeline only the last stage's copy of the head sends a gradient
+    back."""
+    from dedloc_tpu_torch.models.albert import local_positions
+    from dedloc_tpu_torch.parallel.mesh import all_reduce, psum
+    from dedloc_tpu_torch.parallel.pipeline import last_stage_grad
+
+    cfg = model.cfg
+    tokens = ("data", "seq")  # the axes that split the masked tokens
+    first_seq = mesh.axis_index("seq") == 0
+
+    def mean(num, den, num_axes, den_axes):
+        den = all_reduce(den.detach(), mesh, den_axes).clamp_min(1.0)
+        return psum(num, mesh, num_axes) / den
+
+    def loss_fn(params, batch, rng: Optional[torch.Generator] = None):
+        gathered = "mlm_positions" in batch
+        losses = {}
+        mlm_logits, sop_logits = functional_call(
+            model, params,
+            (batch["input_ids"], batch["attention_mask"], batch["token_type_ids"]),
+            {"mlm_positions": batch["mlm_positions"] if gathered else None,
+             "losses": losses},
+        )
+        if gathered:
+            labels = batch["mlm_label_ids"]
+            weight = batch["mlm_weights"].float()
+            # the weights are the same on every seq rank: each counts the
+            # positions in its own shard, the count is over data alone
+            _, inside = local_positions(cfg, batch["mlm_positions"],
+                                        batch["input_ids"].shape[1])
+            mask, count, count_axes = weight * inside, weight.sum(), "data"
+        else:
+            labels = batch["mlm_labels"]
+            mask = (labels != -100).float()
+            labels = torch.where(labels == -100, torch.zeros_like(labels), labels)
+            count, count_axes = mask.sum(), tokens
+        logp = torch.log_softmax(mlm_logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        mlm_loss = mean((nll * mask).sum(), count, tokens, count_axes)
+        hits = (mlm_logits.argmax(-1) == labels.long()).float()
+        mlm_acc = mean((hits * mask).sum(), count, tokens, count_axes)
+        sop_logp = torch.log_softmax(sop_logits.float(), dim=-1)
+        sop_nll = -sop_logp.gather(-1, batch["sop_labels"].long()[:, None])[:, 0]
+        # the pooled [CLS] position lives on the first seq rank
+        sop_sum = sop_nll.sum() * (1.0 if first_seq else 0.0)
+        rows = torch.tensor(float(sop_nll.shape[0]), device=sop_nll.device)
+        sop_loss = mean(sop_sum, rows, tokens, "data")
+        loss = mlm_loss + sop_loss
+        metrics = {"loss": loss, "mlm_loss": mlm_loss, "sop_loss": sop_loss,
+                   "mlm_acc": mlm_acc}
+        if cfg.moe_experts > 0:
+            aux = losses["moe_aux"]
+            loss = loss + cfg.moe_aux_weight * aux
+            metrics = dict(metrics, moe_aux=aux)
+        return last_stage_grad(loss, mesh), metrics
 
     return loss_fn
 
@@ -299,16 +388,20 @@ def synthetic_mlm_batches(
         yield mask_tokens(batch, rng, tokens, max_predictions=max_predictions)
 
 
+def loss_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
+    """The batch keys the loss consumes (the gathered or the dense MLM
+    layout)."""
+    if "mlm_positions" in batch:
+        return ("input_ids", "attention_mask", "token_type_ids",
+                "mlm_positions", "mlm_label_ids", "mlm_weights", "sop_labels")
+    return ("input_ids", "attention_mask", "token_type_ids",
+            "mlm_labels", "sop_labels")
+
+
 def drop_collator_keys(
     batch: Dict[str, np.ndarray], device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
     """Keep only what the loss consumes, as tensors on ``device`` (the card
     by default)."""
     dev = resolve_device(device)
-    if "mlm_positions" in batch:
-        keep = ("input_ids", "attention_mask", "token_type_ids",
-                "mlm_positions", "mlm_label_ids", "mlm_weights", "sop_labels")
-    else:
-        keep = ("input_ids", "attention_mask", "token_type_ids",
-                "mlm_labels", "sop_labels")
-    return {k: torch.as_tensor(batch[k]).to(dev) for k in keep}
+    return {k: torch.as_tensor(batch[k]).to(dev) for k in loss_keys(batch)}

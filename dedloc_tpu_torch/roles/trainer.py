@@ -12,13 +12,25 @@ batches are the JAX trainer's for the same inputs and peer key: synthetic,
 tokenized shards on disk (``--training.dataset_path``) or a streamed,
 tokenized text mix (``--training.streaming_files``). The Switch-MoE
 variant runs with ``--training.moe_experts`` (and
-``--training.moe_capacity_factor``, ``--training.moe_aux_weight``). One
-device per peer: ``mesh_*_devices > 1`` (the expert axis too), ZeRO and
-ring attention come with the parallel-axes slice and raise ``ValueError``
-naming it.
+``--training.moe_capacity_factor``, ``--training.moe_aux_weight``).
 
     python -m dedloc_tpu_torch.roles.trainer --dht.experiment_prefix run \\
         --optimizer.target_batch_size 48 --training.per_device_batch_size 12
+
+With ``--training.mesh_devices N`` the peer is a slice of N ranks, one per
+mesh device (``parallel/mesh.py``), launched by torchrun::
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m dedloc_tpu_torch.roles.trainer --training.mesh_devices N ...
+
+The mesh is the JAX trainer's: ``mesh_{model,seq,pipe,expert}_devices``
+carve the tensor, sequence (ring attention), pipeline and expert axes out
+of it with the same refusals, the data axis takes the rest, and
+``--training.zero_sharding`` shards the LAMB moments over the data axis.
+The slice is one collaboration peer: rank 0 runs the DHT, the averager,
+telemetry and checkpoints and leads the other ranks through each
+boundary (``collaborative/slice.py``); every rank draws the slice's whole
+batch (``per_device_batch_size x mesh_devices`` rows) and takes its part.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from dedloc_tpu_torch.collaborative.metrics import LocalMetrics, publish_metrics
 from dedloc_tpu_torch.collaborative.optimizer import (
@@ -38,9 +51,12 @@ from dedloc_tpu_torch.core.config import CollaborationArguments, parse_config
 from dedloc_tpu_torch.data.mlm import max_predictions_for
 from dedloc_tpu_torch.data.streaming import peer_shuffle_seed
 from dedloc_tpu_torch.ops import flash_attention, fused_ln
+from dedloc_tpu_torch.collaborative.slice import Slice
+from dedloc_tpu_torch.parallel.mesh import init_slice, make_mesh, put_batch
 from dedloc_tpu_torch.parallel.train_step import (
     TrainState,
     make_accumulate_step,
+    make_guarded_apply_step,
     zeros_like_grads,
 )
 from dedloc_tpu_torch.roles.common import (
@@ -54,6 +70,7 @@ from dedloc_tpu_torch.roles.common import (
     configure_role_telemetry,
     drop_collator_keys,
     force_cpu_if_requested,
+    loss_keys,
     synthetic_mlm_batches,
 )
 from dedloc_tpu_torch.telemetry import steps
@@ -70,50 +87,128 @@ from dedloc_tpu_torch.utils.perf import PerfStats
 logger = get_logger(__name__)
 
 
-def _refuse_later_slices(args: CollaborationArguments) -> None:
+def slice_axes(args: CollaborationArguments):
+    """The slice mesh's (axis names, shape) from the flags, with the JAX
+    trainer's refusals; None for a one-device peer."""
     tr = args.training
-    if (tr.mesh_devices > 1 or tr.mesh_seq_devices > 1
-            or tr.mesh_model_devices > 1 or tr.mesh_pipe_devices > 1
-            or tr.mesh_expert_devices > 1 or tr.zero_sharding
-            or tr.attention_impl == "ring"):
+    if tr.mesh_devices > 1:
+        sp = max(1, tr.mesh_seq_devices)
+        tp = max(1, tr.mesh_model_devices)
+        pp = max(1, tr.mesh_pipe_devices)
+        ep = max(1, tr.mesh_expert_devices)
+        if tr.mesh_devices % (sp * tp * pp * ep):
+            raise ValueError(
+                f"mesh_seq_devices ({sp}) x mesh_model_devices ({tp}) x "
+                f"mesh_pipe_devices ({pp}) x mesh_expert_devices ({ep}) "
+                f"must divide mesh_devices ({tr.mesh_devices})")
+        if pp > 1 and (sp > 1 or tp > 1):
+            raise ValueError(
+                "mesh_pipe_devices composes with the data axis only; "
+                "seq/model axes need collectives inside the pipeline stage")
+        if ep > 1 and not tr.moe_experts:
+            raise ValueError(
+                "mesh_expert_devices > 1 needs --training.moe_experts > 0")
+        if tr.moe_experts and tr.moe_experts % ep:
+            raise ValueError(
+                f"moe_experts ({tr.moe_experts}) must divide evenly over "
+                f"mesh_expert_devices ({ep})")
+        dp = tr.mesh_devices // (sp * tp * pp * ep)
+        names, dims = ["data"], [dp]
+        for name, size in (("model", tp), ("seq", sp), ("pipe", pp),
+                           ("expert", ep)):
+            if size > 1:
+                names.append(name)
+                dims.append(size)
+        axes = (tuple(names), tuple(dims))
+    elif (tr.mesh_seq_devices > 1 or tr.mesh_model_devices > 1
+          or tr.mesh_pipe_devices > 1 or tr.mesh_expert_devices > 1):
         raise ValueError(
-            "the port's trainer runs on one device: mesh_*_devices, "
-            "zero_sharding and attention_impl='ring' come with the "
-            "parallel-axes slice (ROADMAP, queue A)")
+            "mesh_seq/model/pipe/expert_devices > 1 require mesh_devices > 1")
+    else:
+        axes = None
+    if tr.attention_impl == "ring" and (axes is None or "seq" not in axes[0]):
+        raise ValueError(
+            "attention_impl='ring' needs a sequence-parallel mesh axis: set "
+            "--training.mesh_seq_devices > 1 (and mesh_devices divisible by it)")
+    if tr.zero_sharding and axes is None:
+        raise ValueError(
+            "--training.zero_sharding shards optimizer moments over a slice "
+            "mesh; set --training.mesh_devices > 1")
+    return axes
 
 
 def run_trainer(args: CollaborationArguments) -> TrainState:
     device = force_cpu_if_requested()
-    _refuse_later_slices(args)
+    tr = args.training
+    axes = slice_axes(args)
+    mesh = None
+    if axes is not None:
+        init_slice(tr.mesh_devices, device.type, tr.mesh_device_offset)
+        mesh = make_mesh(tr.mesh_devices, axes[0],
+                         axes[1] if len(axes[1]) > 1 else None,
+                         tr.mesh_device_offset, device.type)
+        device = mesh.device
+        logger.info(f"slice mesh: {dict(mesh.shape)}, rank {mesh.rank} on "
+                    f"{device}, backend {mesh.backend}")
+    leader = mesh is None or mesh.rank == 0
     # gated runs: token handshake BEFORE any heavy setup, so bad credentials
     # fail in milliseconds
-    authorizer, authority_public_key = build_authorizer(args)
-    tr = args.training
+    authorizer, authority_public_key = (build_authorizer(args) if leader
+                                        else (None, None))
+    on = lambda name: mesh if mesh is not None and name in mesh.shape else None
     cfg, model = build_model(tr.model_size, tr.remat_policy, tr.attention_impl,
                              tr.vocab_size, device=device, seed=tr.seed,
                              moe_experts=tr.moe_experts,
                              moe_capacity_factor=tr.moe_capacity_factor,
-                             moe_aux_weight=tr.moe_aux_weight)
+                             moe_aux_weight=tr.moe_aux_weight,
+                             ring_mesh=on("seq"), pipe_mesh=on("pipe"),
+                             pipe_microbatches=tr.pipe_microbatches,
+                             moe_mesh=on("expert"), mesh=mesh)
     tx = build_optimizer(args)
-    dht, public_key = build_dht(
-        args,
-        private_key=(
-            authorizer.local_private_key if authorizer is not None else None
-        ),
-    )
-    logger.info(f"trainer DHT listening on {dht.port}")
-    tele, tele_close = configure_role_telemetry(args, public_key)
+    dht = tele = None
+    tele_close = lambda: None
+    public_key = b""
+    if leader:
+        dht, public_key = build_dht(
+            args,
+            private_key=(
+                authorizer.local_private_key if authorizer is not None else None
+            ),
+        )
+        logger.info(f"trainer DHT listening on {dht.port}")
+        tele, tele_close = configure_role_telemetry(args, public_key)
 
     seq = min(tr.seq_length, cfg.max_position_embeddings)
-    slice_batch = tr.per_device_batch_size
+    # the slice's batch: per_device_batch_size rows per mesh device, split
+    # over the data axis (replicated over the others)
+    slice_batch = tr.per_device_batch_size * max(1, tr.mesh_devices)
     state = TrainState.create(dict(model.named_parameters()), tx)
+    param_sharding = opt_sharding = the_slice = apply_fn = None
+    if mesh is not None:
+        state, param_sharding, opt_sharding = _shard_state(state, mesh, tx,
+                                                           tr.zero_sharding)
+        the_slice = Slice(mesh, tx, param_sharding, opt_sharding)
+        apply_fn = make_guarded_apply_step(tx, mesh=mesh,
+                                           opt_state_sharding=opt_sharding,
+                                           param_sharding=param_sharding)
+        # every rank draws the slice's batches from rank 0's peer key
+        box = [public_key]
+        dist.broadcast_object_list(box, src=0)
+        public_key = box[0]
+    if not leader:
+        try:
+            return _follow(args, cfg, model, state, the_slice, apply_fn, mesh,
+                           public_key, slice_batch, seq)
+        finally:
+            dist.destroy_process_group()
 
     # local resume: newest checkpoint* dir wins
     resumed = load_latest_checkpoint(tr.output_dir)
     resumed_local_step = 0
     if resumed is not None:
         step, named, meta = resumed
-        state = adopt_state(state, named, step, tx)
+        state = (the_slice.adopt(state, named, step) if the_slice is not None
+                 else adopt_state(state, named, step, tx))
         # carry the COLLABORATIVE counter too, so a collaboration restarted
         # from disk continues its round ids from the checkpoint
         resumed_local_step = int(meta.get("local_step", step))
@@ -168,6 +263,9 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         listen_port=args.averager.listen_port,
         advertised_host=args.dht.advertised_host or None,
         allow_state_sharing=args.optimizer.allow_state_sharing,
+        mesh=mesh,
+        opt_state_sharding=opt_sharding,
+        param_sharding=param_sharding,
         authorizer=authorizer,
         authority_public_key=authority_public_key,
         verbose=True,
@@ -181,6 +279,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     # share a pre-training snapshot: partners that miss the first rounds
     # must find a state provider immediately
     opt.seed_state_sharing(state)
+    if the_slice is not None:
+        the_slice.end(False, False, opt.local_step)
 
     accumulate = make_accumulate_step(build_loss_fn(model))
     grad_acc = zeros_like_grads(state.params)
@@ -219,7 +319,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                 for _ in range(tr.gradient_accumulation_steps):
                     t0 = time.perf_counter()
                     with steps.phase("data_wait"):
-                        batch = drop_collator_keys(next(batches), device=device)
+                        batch = _local_batch(next(batches), mesh, device, seq)
                     data_wait += time.perf_counter() - t0
                     with steps.phase("fwd_bwd"):
                         grad_acc, n_acc, metrics = accumulate(
@@ -300,7 +400,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                 ):
                     # cadence by DISTANCE: a collaborative local_step can
                     # jump over exact multiples
-                    _save(args, state, opt.local_step, tx)
+                    _save(args, state, opt.local_step, tx, the_slice)
                     last_saved_step = opt.local_step
 
             boundary += 1
@@ -313,7 +413,73 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         tele_close()
         opt.shutdown()
         dht.shutdown()
+        if mesh is not None:
+            dist.destroy_process_group()
     return state
+
+
+def _shard_state(state: TrainState, mesh, tx, zero: bool):
+    """The parameter specs of the mesh's TP/EP rules, the moment specs
+    (those rules, plus ZeRO-1 over the data axis with ``zero``) and the
+    state with its moments cut to this rank's blocks."""
+    from dedloc_tpu_torch.parallel.sharding import partition_specs, rules_for
+    from dedloc_tpu_torch.parallel.zero import opt_state_shardings, shard_opt_state
+
+    rules = rules_for(mesh)
+    param_sharding = partition_specs(state.params, rules) if rules else None
+    opt_sharding = None
+    if zero or param_sharding is not None:
+        full = Slice(mesh, tx, param_sharding).full_like(state.params)
+        opt_sharding = opt_state_shardings(
+            state.opt_state, mesh, axis="data" if zero else None,
+            tp_rules=rules or None,
+            full_shapes={n: t.shape for n, t in full.items()})
+        state.opt_state = shard_opt_state(state.opt_state, mesh,
+                                          shardings=opt_sharding,
+                                          param_specs=param_sharding or {})
+    split = lambda specs: sorted({a for s in (specs or {}).values()
+                                  for a in s if a is not None})
+    logger.info(
+        f"slice layout: {sum(any(s) for s in (param_sharding or {}).values())} "
+        f"parameter leaves split over {split(param_sharding)}, "
+        f"{sum(any(s) for s in (opt_sharding.mu if opt_sharding else {}).values())}"
+        f" moment leaves over {split(opt_sharding.mu if opt_sharding else None)}")
+    return state, param_sharding, opt_sharding
+
+
+def _local_batch(host, mesh, device, seq: int):
+    """This rank's part of the slice's host batch, on its device."""
+    if mesh is None:
+        return drop_collator_keys(host, device=device)
+    return put_batch({k: host[k] for k in loss_keys(host)}, mesh,
+                     seq_axis="seq" if "seq" in mesh.shape else None,
+                     seq_length=seq)
+
+
+def _follow(args, cfg, model, state: TrainState, the_slice, apply_fn, mesh,
+            public_key: bytes, slice_batch: int, seq: int) -> TrainState:
+    """A slice rank other than 0: the same micro-batches (its part of them)
+    into its own accumulator, and each boundary as rank 0 leads it."""
+    tr = args.training
+    state, _acc, _n, _stepped, local_step = the_slice.follow(state, None, 0)
+    accumulate = make_accumulate_step(build_loss_fn(model))
+    grad_acc, n_acc = zeros_like_grads(state.params), 0
+    batches = _make_batches(args, cfg, public_key, slice_batch)
+    last_saved_step, boundary = local_step, 0
+    while True:
+        for _ in range(tr.gradient_accumulation_steps):
+            batch = _local_batch(next(batches), mesh, mesh.device, seq)
+            grad_acc, n_acc, _metrics = accumulate(state.params, grad_acc,
+                                                   n_acc, batch)
+        state, grad_acc, n_acc, stepped, local_step = the_slice.follow(
+            state, grad_acc, n_acc, apply_fn)
+        if (stepped and tr.save_steps
+                and local_step - last_saved_step >= tr.save_steps):
+            _save(args, state, local_step, None, the_slice)
+            last_saved_step = local_step
+        boundary += 1
+        if tr.max_local_steps and boundary >= tr.max_local_steps:
+            return state
 
 
 def _log_record(opt, perf, loss, sps, samples, wall_s, device,
@@ -352,9 +518,15 @@ def _hbm_bytes_in_use(device: torch.device) -> Optional[int]:
     return int(torch.cuda.memory_allocated(device)) or None
 
 
-def _save(args: CollaborationArguments, state: TrainState, step: int, tx) -> None:
-    named = {k: v.detach().cpu().numpy().copy()
-             for k, v in _state_views(state, tx).items()}
+def _save(args: CollaborationArguments, state: TrainState, step: int, tx,
+          the_slice=None) -> None:
+    """Write the state under the single-device names; on a slice every rank
+    takes part in gathering it and rank 0 writes the full tensors."""
+    views = (the_slice.state_views(state) if the_slice is not None
+             else _state_views(state, tx))
+    if the_slice is not None and not the_slice.leader:
+        return
+    named = {k: v.detach().cpu().numpy().copy() for k, v in views.items()}
     save_checkpoint(
         args.training.output_dir,
         step,

@@ -156,10 +156,21 @@ def test_convert_accepts_slash_joined_names(fp32_case):
 
 
 def test_unported_features_raise():
-    for overrides in (dict(attention_impl="ring"),
-                      dict(moe_experts=2, moe_mesh=object()),
-                      dict(pipe_mesh=object())):
-        with pytest.raises(NotImplementedError):
+    """The mesh arguments the JAX model refuses, refused with the cause:
+    ring without its mesh, and the pipeline beside experts, ring or TP
+    (and with a layer count the stages do not divide)."""
+    from dedloc_tpu_torch.parallel.mesh import MeshLayout
+
+    pipe = MeshLayout(("data", "pipe"), (1, 2))
+    for overrides, match in (
+            (dict(attention_impl="ring"), "needs ring_mesh"),
+            (dict(moe_experts=2, pipe_mesh=pipe), "pipe_mesh \\+ moe_experts"),
+            (dict(attention_impl="ring", ring_mesh=pipe, pipe_mesh=pipe),
+             "pipe_mesh \\+ attention_impl='ring'"),
+            (dict(mesh=MeshLayout(("model", "pipe"), (2, 2)), pipe_mesh=pipe),
+             "data axis only"),
+            (dict(num_hidden_layers=3, pipe_mesh=pipe), "divide evenly")):
+        with pytest.raises(ValueError, match=match):
             AlbertForPreTraining(AlbertConfig.tiny(**overrides))
 
 

@@ -104,3 +104,30 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     alone = run(tmp_path)
     assert alone.returncode != 0 and alone.stdout == ""
+
+
+_SLICE_MODULES = ("dedloc_tpu_torch.parallel.mesh", "dedloc_tpu_torch.parallel.sharding",
+                  "dedloc_tpu_torch.parallel.zero", "dedloc_tpu_torch.parallel.pipeline",
+                  "dedloc_tpu_torch.collaborative.slice")
+
+
+def test_slice_modules_import_alone_and_their_mesh_defaults_to_the_card():
+    """The mesh modules of the parallel-axes slice import with nothing of
+    JAX (the probe above walks them too), and ``make_mesh`` resolves the
+    card unless the caller names the CPU, like every entry point."""
+    code = ("import importlib, sys\n"
+            f"for m in {_SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'dedloc_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    from dedloc_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh(1)
+    assert make_mesh(1, device_type="cpu").device.type == "cpu"

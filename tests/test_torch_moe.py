@@ -264,10 +264,18 @@ def test_bf16_matches_jax_on_tokens_with_a_gate_margin():
 
 
 def test_a_mesh_is_refused_with_the_slice_named():
+    """``moe_ffn`` takes a slice mesh (a one-device mesh changes nothing;
+    several ranks: tests/test_torch_moe_ep.py); the dense plain version is
+    the one-device layer and refuses one."""
+    from dedloc_tpu_torch.parallel.mesh import make_mesh
+
     _jcfg, tcfg, _jp, tp, x = _case("per_token_reference")
-    for fn in (moe.moe_ffn, moe.moe_ffn_dense):
-        with pytest.raises(NotImplementedError, match="parallel-axes slice"):
-            fn(tp, torch.from_numpy(x), tcfg, mesh=object())
+    mesh = make_mesh(1, ("data", "expert"), device_type="cpu")
+    y, aux = moe.moe_ffn(tp, torch.from_numpy(x), tcfg, mesh=mesh)
+    want, want_aux = moe.moe_ffn(tp, torch.from_numpy(x), tcfg)
+    assert torch.equal(y, want) and torch.equal(aux, want_aux)
+    with pytest.raises(ValueError, match="one-device"):
+        moe.moe_ffn_dense(tp, torch.from_numpy(x), tcfg, mesh=mesh)
 
 
 def test_init_moe_params_shapes_dtypes_and_scales():

@@ -1,6 +1,7 @@
 """The port's trainer role and join entry point: a solo peer on the CPU
 when the caller asks for it, a refusal without CUDA otherwise, the same
-join flags as the JAX package, and the options of later slices refused."""
+join flags as the JAX package, and the slice options refused outside a
+slice."""
 import json
 
 import numpy as np
@@ -78,13 +79,16 @@ def test_trainer_without_cuda_raises_unless_the_cpu_is_asked_for(tmp_path, monke
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--training.mesh_devices", "2"], "one device"),
-    (["--training.zero_sharding", "true"], "one device"),
+    # a slice needs its ranks: one process is told the torchrun command
+    (["--training.mesh_devices", "2"], "torch.distributed.run"),
+    (["--training.zero_sharding", "true"], "mesh_devices > 1"),
     (["--training.moe_experts", "2", "--training.mesh_expert_devices", "2"],
-     "one device"),
-    (["--training.attention_impl", "ring"], "one device"),
-])
+     "require mesh_devices > 1"),
+    (["--training.attention_impl", "ring"], "sequence-parallel mesh axis"),
+], ids=[f"flags{i}-one device" for i in range(4)])
 def test_options_of_later_slices_are_refused(tmp_path, monkeypatch, flags, match):
+    """Slice options without a slice (or without its ranks) are refused
+    with the JAX trainer's reasons, before any network or device setup."""
     monkeypatch.setenv("DEDLOC_FORCE_CPU", "1")
     with pytest.raises(ValueError, match=match):
         run_trainer(_args(tmp_path, *flags))

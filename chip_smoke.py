@@ -153,10 +153,26 @@ Phases (any failure exits non-zero):
               first update, the whole gradient, or for TP the distance to
               the fp32 step's gradient), replicated blocks bitwise equal
               across ranks, launches per rank, ms per step, staged bytes and
-              peak memory per rank. Then two torchrun slices (tp2) as two
-              peers through the trainer CLI: 3 averaged steps each, states
-              bitwise equal at every common checkpointed step, the
-              checkpoint a one-device peer's (names, shapes, loads).
+              peak memory per rank. The SwAV slice on 2 ranks
+              (``swav_dp2_fp32``, then ``swav_dp2`` with the bf16 trunk):
+              ResNet-50 SwAV, 32 images a step (16 a rank), queue 3,840 on
+              the second step, LARS with the prototype post_apply, 2 steps
+              against the one-rank step on the same weights and crops (fp32
+              with TF32 off: the loss before the first update, the whole
+              gradient and the new running statistics; bf16: the gradient's
+              distance beside the bf16-vs-fp32 floor measured in the same
+              run), params, running statistics and queue bitwise equal
+              across the ranks after each step, no port kernel launched.
+              Then two torchrun slices (tp2) as two peers through the
+              trainer CLI: 3 averaged steps each, states bitwise equal at
+              every common checkpointed step, the checkpoint a one-device
+              peer's (names, shapes, loads). The SwAV peer as a dp2 slice
+              through its CLI (3 boundaries, a solo peer): finite losses,
+              its checkpoint loads into a one-device peer. Two dp2 slices
+              as peers with overlap averaging: 3 averaged steps each, at
+              least one late apply each (telemetry), states bitwise equal
+              at every common checkpointed step, the overlap ledger's
+              hidden and exposed seconds.
 
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
@@ -174,6 +190,7 @@ import hashlib
 import json
 import math
 import os
+import random
 import re
 import shutil
 import signal
@@ -1141,7 +1158,32 @@ def collab_card_checks(seed: int) -> dict:
     return out
 
 
+_PORTS_GIVEN: set = set()
+
+
 def _free_port() -> int:
+    """A free TCP port for a peer to listen on, taken outside the kernel's
+    ephemeral range where one is left: an ephemeral port found free here
+    can be handed to another process's connection (gloo, torchrun's store)
+    before the peer binds it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low, high = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        low, high = 32768, 60999
+    spans = [r for r in ((10000, low - 1), (high + 1, 65535)) if r[1] - r[0] > 1000]
+    rng = random.Random()
+    for _ in range(200 if spans else 0):
+        port = rng.randint(*rng.choice(spans))
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
@@ -2794,6 +2836,16 @@ MESH_TP_NOISE_SHARE = 0.6
 MESH_FP32_GRAD_RTOL = 2e-5
 MESH_CLI_STEPS = 3  # averaged global steps the two CLI slices must take
 MESH_CLI_DEADLINE_S = 240.0
+OVERLAP_CLI_STEPS = 3  # averaged steps each overlapping dp2 slice must take
+# 3 boundaries of each slice a step, 6 of one alone. A slice applies a
+# landed round at its next boundary, up to a boundary before its partner,
+# and keeps the samples it accumulated in flight: at a 48-sample target it
+# can reach the next round's target before its partner reports the new
+# step, average alone and stay one apply ahead (at 48 the states of one
+# run differed from step 4 on). The tp2 slices' synchronous rounds apply on
+# both at once.
+OVERLAP_CLI_TARGET = 144
+SWAV_SLICE_CLI_BOUNDARIES = 3
 
 
 def _mesh_model(c: dict, seed: int, mesh=None):
@@ -2945,6 +2997,185 @@ def _mesh_digests(state, pspecs, ospecs) -> dict:
     return out
 
 
+SWAV_SLICE_STEPS = 2  # the queue off, then on
+# the fp32 slice step against the fp32 one-rank step, TF32 off (the JAX
+# package's limits for its 8-device step, tests/test_swav.py): the loss
+# before the first update within 1e-4, the new running statistics within
+# 1e-5 (of each one's max |ref|), the whole gradient within 1e-3 relative
+# or, where the step itself is less stable than that, within 1.5x its
+# reordering floor: the distance between two one-rank steps on the same
+# images in another order, measured in the same run. At full width and
+# init the sinkhorn turns summation-order noise into a gradient 2.2e-2 away
+# (PERF.md, section 6): the slice's sums are such a reordering. The bf16 cell
+# is held to its own reordering floor the same way, and reports its
+# distance beside the bf16-vs-fp32 floor.
+SWAV_SLICE_LOSS_ATOL = 1e-4
+SWAV_SLICE_GRAD_RTOL = 1e-3
+SWAV_SLICE_STATS_RTOL = 1e-5
+SWAV_SLICE_FLOOR_SHARE = 1.5
+
+
+def _swav_slice_run(fp32: bool, seed: int, mesh=None, order=None) -> dict:
+    """SWAV_SLICE_STEPS LARS steps of the full-width SwAV (queue 3,840, on
+    the second step) on SWAV_BATCH global images: the slice's when ``mesh``
+    is given, else one rank's. Each step is one micro-batch through the
+    accumulate step, the ranks' gradient parts summed (``reduce_grads``, as
+    ``Slice.full_grads``), and the guarded apply with the prototype
+    post_apply (the slice's ``mesh_update``). The first step's loss,
+    gradient (flat, sorted JAX names) and running statistics; per step ms,
+    staged bytes, launches, and digests of params, statistics and queue."""
+    import numpy as np
+
+    from dedloc_tpu_torch.data.multicrop import MultiCropSpec, synthetic_multicrop_batches
+    from dedloc_tpu_torch.models import convert
+    from dedloc_tpu_torch.models.resnet import ResNetConfig
+    from dedloc_tpu_torch.models.swav import (
+        SwAVConfig, SwAVQueue, crop_tensors, init_swav, make_prototype_post_apply,
+        make_swav_accumulate_step,
+    )
+    from dedloc_tpu_torch.optim.lars import Lars
+    from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
+    from dedloc_tpu_torch.parallel import mesh as pm
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState, make_guarded_apply_step, reduce_grads, zeros_like_grads,
+    )
+
+    trunk = ResNetConfig(dtype=torch.float32) if fp32 else ResNetConfig()
+    cfg = SwAVConfig(trunk=trunk, queue_length=SWAV_QUEUE)
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    model, params, stats = init_swav(cfg, seed, device, mesh)
+    queue = SwAVQueue.create(cfg, torch.Generator().manual_seed(seed + 1), device)
+    tx = Lars(linear_warmup_cosine_annealing(0.6, 2, 100), momentum=0.9,
+              weight_decay=1e-6)
+    state = TrainState.create(params, tx)
+    accumulate = make_swav_accumulate_step(model, cfg, mesh)
+    apply = make_guarded_apply_step(tx, mesh=mesh, post_apply=make_prototype_post_apply())
+    batches = synthetic_multicrop_batches(MultiCropSpec(), SWAV_BATCH, seed=seed)
+    digest = lambda ts: hashlib.sha256(b"".join(
+        t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        for t in ts)).hexdigest()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    out = dict(step_ms=[], staged_bytes_per_step=[], launches_per_step=[], losses=[],
+               oks=[], digests=[])
+    for step in range(SWAV_SLICE_STEPS):
+        crops = next(batches)
+        if order is not None:  # the same images in another order
+            crops = [c.reshape(-1, SWAV_BATCH, *c.shape[1:])[:, order].reshape(c.shape)
+                     for c in crops]
+        before, staged = _port_launches(), pm.STAGING.bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, n, stats, queue, metrics = accumulate(
+            state.params, stats, queue, zeros_like_grads(state.params), 0,
+            crop_tensors(crops, device, SWAV_BATCH, mesh), 0, step > 0)
+        summed = reduce_grads(grads, mesh) if mesh is not None else grads
+        if step == 0:
+            torch.cuda.synchronize()
+            pause = time.perf_counter()
+            named = convert.params_to_jax(summed)
+            out["names"] = sorted(named)
+            out["grads"] = np.concatenate([named[k].ravel() for k in out["names"]])
+            out["stats"] = convert.params_to_jax(stats)
+            t0 += time.perf_counter() - pause  # the check is not the step's
+        state, ok = apply(state, summed)
+        out["losses"].append(float(metrics["loss"]))  # waits for the step
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["oks"].append(bool(ok))
+        after = _port_launches()
+        out["launches_per_step"].append({k: after[k] - before[k] for k in after})
+        out["staged_bytes_per_step"].append(pm.STAGING.bytes - staged)
+        out["digests"].append(dict(
+            params=digest(state.params.values()), stats=digest(stats.values()),
+            queue=digest([queue.embeddings])))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["params"] = sum(p.numel() for p in state.params.values())
+    return out
+
+
+def swav_slice_cell(name: str, seed: int, world: int, rank: int, refs: dict,
+                    errors: list):
+    """One SwAV slice cell of the mesh phase (``swav_dp2_fp32`` or
+    ``swav_dp2``) on ``world`` ranks of this card, against the one-rank
+    steps rank 0 runs first (fp32 always: the bf16 cell's floor); rank 0
+    returns the cell's results."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dedloc_tpu_torch.parallel import mesh as pm
+
+    fp32 = name.endswith("fp32")
+    order = np.random.default_rng(seed).permutation(SWAV_BATCH)
+    for kind in ("fp32", "fp32 reordered") if fp32 else ("fp32", "bf16", "bf16 reordered"):
+        if rank == 0 and kind not in refs:
+            refs[kind] = _swav_slice_run(kind.startswith("fp32"), seed,
+                                         order=order if "reordered" in kind else None)
+            gc.collect()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = pm.make_mesh(world, ("data",), device_type="cuda")
+    run = _swav_slice_run(fp32, seed, mesh)
+    every = [None] * world
+    dist.all_gather_object(every, dict(digests=run["digests"], peak=run["peak_bytes"],
+                                       staged=run["staged_bytes_per_step"],
+                                       launches=run["launches_per_step"],
+                                       losses=run["losses"]))
+    if rank != 0:
+        return None
+    kind = "fp32" if fp32 else "bf16"
+    ref = refs[kind]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    loss_err = abs(run["losses"][0] - ref["losses"][0])
+    grad_err = rel(run["grads"], ref["grads"])
+    floor = rel(refs[kind + " reordered"]["grads"], ref["grads"])
+    grad_limit = max(SWAV_SLICE_GRAD_RTOL if fp32 else 0.0, SWAV_SLICE_FLOOR_SHARE * floor)
+    stats_err = max(float(np.abs(run["stats"][k] - v).max() / np.abs(v).max())
+                    for k, v in ref["stats"].items())
+    out = dict(ranks=world, ranks_per_card=mesh.ranks_per_device, backend=mesh.backend,
+               trunk="fp32" if fp32 else "bf16", params=run["params"],
+               images_per_step=SWAV_BATCH, images_per_rank=SWAV_BATCH // world,
+               queue=SWAV_QUEUE, step_ms=run["step_ms"], ms_per_step=run["step_ms"][-1],
+               images_per_s=SWAV_BATCH / run["step_ms"][-1] * 1e3,
+               staged_bytes_per_step=[e["staged"][-1] for e in every],
+               peak_bytes_per_rank=[e["peak"] for e in every],
+               launches_per_step_per_rank=[e["launches"][-1] for e in every],
+               losses=run["losses"], one_rank_losses=ref["losses"],
+               one_rank_ms_per_step=ref["step_ms"][-1],
+               loss_abs_err=loss_err, grad_rel_err=grad_err, stats_rel_err=stats_err,
+               reordered_one_rank_grad_rel_err=floor, grad_limit=grad_limit,
+               reordered_one_rank_loss_abs_err=abs(
+                   refs[kind + " reordered"]["losses"][0] - ref["losses"][0]))
+    checks = [("gradient", grad_err, grad_limit)]
+    if fp32:
+        checks += [("loss", loss_err, SWAV_SLICE_LOSS_ATOL),
+                   ("running statistics", stats_err, SWAV_SLICE_STATS_RTOL)]
+    else:
+        truth = refs["fp32"]["grads"]
+        out.update(grad_rel_err_vs_fp32=rel(run["grads"], truth),
+                   one_rank_grad_rel_err_vs_fp32=rel(ref["grads"], truth))
+    for what, err, tol in checks:
+        if not err <= tol:
+            errors.append(f"{name}: {what} {err:.3e} from the one-rank step (> {tol:.3e})")
+    if run["names"] != ref["names"]:
+        errors.append(f"{name}: gradient names differ from the one-rank step")
+    unequal = [f"{what} after step {step + 1}" for step in range(SWAV_SLICE_STEPS)
+               for what in ("params", "stats", "queue")
+               if len({e["digests"][step][what] for e in every}) != 1]
+    if unequal:
+        errors.append(f"{name}: the ranks' {unequal} differ")
+    out["replicas_bitwise"] = not unequal
+    if any(v for e in every for counts in e["launches"] for v in counts.values()):
+        errors.append(f"{name}: the SwAV slice launched port kernels")
+    if not all(run["oks"]) or not all(math.isfinite(x) for e in every for x in e["losses"]):
+        errors.append(f"{name}: a non-finite loss or a rolled-back step")
+    print(f"[mesh] {name}: {json.dumps({k: v for k, v in out.items() if k != 'losses'})}",
+          file=sys.stderr, flush=True)
+    return out
+
+
 def mesh_worker(names: list, out_path: str, seed: int) -> int:
     """One rank of a torchrun launch of this script: each config of
     ``names`` (MESH_CONFIGS) as a slice of the launch's ranks on this card,
@@ -2962,6 +3193,14 @@ def mesh_worker(names: list, out_path: str, seed: int) -> int:
     rank = dist.get_rank()
     refs, results, errors = {}, {}, []
     for name in names:
+        if name.startswith("swav"):
+            cell = swav_slice_cell(name, seed, world, rank, refs, errors)
+            if rank == 0:
+                results[name] = cell
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            continue
         c = MESH_CONFIGS[name]
         key = (c.get("moe", 0), c.get("seq", MESH_SEQ), c.get("batch", MESH_BATCH))
         if rank == 0 and key not in refs:
@@ -3089,7 +3328,8 @@ def mesh_steps_on_card(seed: int, work: str) -> dict:
     ring on 2 ranks, dp2 x tp2 on 4, all on this card."""
     here = os.path.abspath(__file__)
     out = {}
-    for n, names in ((2, ["dp2", "tp2", "tp2_fp32", "zero", "pp2", "ep2", "ring"]),
+    for n, names in ((2, ["dp2", "tp2", "tp2_fp32", "zero", "pp2", "ep2", "ring",
+                          "swav_dp2_fp32", "swav_dp2"]),
                      (4, ["dp2tp2"])):
         path = os.path.join(work, f"mesh{n}.json")
         t0 = time.perf_counter()
@@ -3113,37 +3353,37 @@ def mesh_steps_on_card(seed: int, work: str) -> dict:
     return out
 
 
-def mesh_cli(seed: int, work: str) -> dict:
-    """Two slices (torchrun, 2 ranks each, dp1 x tp2) as two peers of one
-    collaboration through the trainer CLI on this card; stopped once both
-    took MESH_CLI_STEPS averaged steps."""
-    from dedloc_tpu_torch.models import convert
-    from dedloc_tpu_torch.roles.common import build_model, build_optimizer
-    from dedloc_tpu_torch.core.config import TrainingArguments
-    from dedloc_tpu_torch.parallel.train_step import TrainState
-    from dedloc_tpu_torch.utils.checkpoint import load_checkpoint
-
+def two_slices(seed: int, work: str, tag: str, slice_flags: list, steps: int,
+               target: int = 48, extra: tuple = ()) -> dict:
+    """Two slices (torchrun, 2 ranks each) as two peers of one
+    collaboration through the trainer CLI on this card (ALBERT-large, 6
+    rows a rank, accumulation 2, 24 samples a boundary, fp16 wire), each
+    rank 0 with
+    its telemetry event log; stopped once both took ``steps`` averaged
+    steps. Checks each slice's samples, backend, launches per boundary and
+    the states' hashes at every common checkpointed step."""
     ports = {"A": _free_port(), "B": _free_port()}
     flags = ["-m", "dedloc_tpu_torch.roles.trainer",
-             "--dht.experiment_prefix", "chip-smoke-mesh",
+             "--dht.experiment_prefix", f"chip-smoke-{tag}",
              "--dht.listen_host", "127.0.0.1",
              "--training.model_size", "large", "--training.remat_policy", "fused_ln",
              "--training.attention_impl", "flash",
              "--training.per_device_batch_size", "6", "--training.seq_length", "512",
              "--training.gradient_accumulation_steps", "2",
-             "--training.mesh_devices", "2", "--training.mesh_model_devices", "2",
+             *slice_flags,
              "--training.warmup_steps", "0", "--training.seed", str(seed),
              "--training.max_local_steps", "200", "--training.save_steps", "1",
              "--training.save_total_limit", "0",
-             "--optimizer.target_batch_size", "48",
+             "--optimizer.target_batch_size", str(target),
              "--averager.compression", "float16",
              "--averager.min_refresh_period", "0.2",
-             "--averager.default_refresh_period", "0.5"]
+             "--averager.default_refresh_period", "0.5",
+             "--telemetry.enabled", "true", *extra]
     procs, logs = {}, {}
     t0 = time.perf_counter()
     try:
         for peer, other in (("A", "B"), ("B", "A")):
-            pdir = os.path.join(work, peer)
+            pdir = os.path.join(work, tag, peer)
             os.makedirs(pdir)
             logs[peer] = open(os.path.join(pdir, "log.txt"), "w")
             procs[peer] = subprocess.Popen(
@@ -3151,6 +3391,7 @@ def mesh_cli(seed: int, work: str) -> dict:
                           "--dht.listen_port", str(ports[peer]),
                           "--dht.initial_peers", f"127.0.0.1:{ports[other]}",
                           "--training.output_dir", pdir,
+                          "--telemetry.event_log_path", os.path.join(pdir, "events.jsonl"),
                           "--training.train_log_path",
                           os.path.join(pdir, "train.jsonl")),
                 stdout=logs[peer], stderr=subprocess.STDOUT,
@@ -3159,15 +3400,15 @@ def mesh_cli(seed: int, work: str) -> dict:
         deadline = time.time() + MESH_CLI_DEADLINE_S
         while time.time() < deadline:
             done = all(sum(r["group_size"] == 2 for r in
-                           _jsonl(os.path.join(work, p, "train.jsonl")))
-                       >= MESH_CLI_STEPS for p in procs)
+                           _jsonl(os.path.join(work, tag, p, "train.jsonl")))
+                       >= steps for p in procs)
             if done or any(pr.poll() is not None for pr in procs.values()):
                 break
             time.sleep(1.0)
         for peer, pr in procs.items():
             if pr.poll() is not None:
-                with open(os.path.join(work, peer, "log.txt")) as f:
-                    fail(f"mesh: slice {peer} exited early ({pr.returncode}):\n"
+                with open(os.path.join(work, tag, peer, "log.txt")) as f:
+                    fail(f"{tag}: slice {peer} exited early ({pr.returncode}):\n"
                          f"{f.read()[-3000:]}")
     finally:
         for pr in procs.values():
@@ -3184,25 +3425,26 @@ def mesh_cli(seed: int, work: str) -> dict:
     wall_s = time.perf_counter() - t0
     reports = {}
     for peer in procs:
-        records = _jsonl(os.path.join(work, peer, "train.jsonl"))
-        with open(os.path.join(work, peer, "log.txt")) as f:
+        pdir = os.path.join(work, tag, peer)
+        records = _jsonl(os.path.join(pdir, "train.jsonl"))
+        with open(os.path.join(pdir, "log.txt")) as f:
             text = f.read()
         joint = [r for r in records if r["group_size"] == 2]
-        if len(joint) < MESH_CLI_STEPS:
-            fail(f"mesh: slice {peer} took {len(joint)} averaged steps "
-                 f"(want {MESH_CLI_STEPS}):\n{text[-3000:]}")
+        if len(joint) < steps:
+            fail(f"{tag}: slice {peer} took {len(joint)} averaged steps "
+                 f"(want {steps}):\n{text[-3000:]}")
         if any(r["samples"] != 6 * 2 * 2 for r in records):
-            fail(f"mesh: slice {peer} samples per boundary "
+            fail(f"{tag}: slice {peer} samples per boundary "
                  f"{sorted({r['samples'] for r in records})} != 24")
         if "backend gloo" not in text:
-            fail(f"mesh: slice {peer} did not log its gloo backend")
+            fail(f"{tag}: slice {peer} did not log its gloo backend")
         prev = {"boundaries": 0, "kernel_launches": {k: 0 for k in COLLAB_EXPECTED}}
         for r in records:
             nb = r["boundaries"] - prev["boundaries"]
             got = {k: r["kernel_launches"][k] - prev["kernel_launches"][k]
                    for k in COLLAB_EXPECTED}
             if got != {k: v * nb for k, v in COLLAB_EXPECTED.items()}:
-                fail(f"mesh: slice {peer} rank 0 launched {got} in {nb} "
+                fail(f"{tag}: slice {peer} rank 0 launched {got} in {nb} "
                      f"boundaries (want {COLLAB_EXPECTED} each)")
             prev = r
         reports[peer] = dict(
@@ -3212,34 +3454,153 @@ def mesh_cli(seed: int, work: str) -> dict:
             samples_per_boundary=records[-1]["samples"],
             samples_per_s=statistics.mean(r["samples_per_second"] for r in joint),
             boundary_ms=statistics.median(r["boundary_ms"] for r in joint),
-            max_memory_allocated=records[-1].get("max_memory_allocated"))
+            boundaries=records[-1]["boundaries"],
+            kernel_launches=records[-1]["kernel_launches"],
+            max_memory_allocated=records[-1].get("max_memory_allocated"),
+            events=_jsonl(os.path.join(pdir, "events.jsonl")), text=text)
     common = sorted(set(reports["A"]["averaged_steps"])
                     & set(reports["B"]["averaged_steps"]))
     hashes = {}
     for step in common:
-        paths = [os.path.join(work, p, f"checkpoint-{step}") for p in procs]
+        paths = [os.path.join(work, tag, p, f"checkpoint-{step}") for p in procs]
         if all(os.path.isdir(x) for x in paths):
             hashes[step] = [_state_hash(x) for x in paths]
     if not hashes or any(h[0] != h[1] for h in hashes.values()):
-        fail(f"mesh: the slices' states differ (or none common): "
+        fail(f"{tag}: the slices' states differ (or none common): "
              f"{ {s: h[0] == h[1] for s, h in hashes.items()} }")
-    # the checkpoint is a one-device peer's: the one-device schema, and it
-    # loads into the one-device model
-    named, _meta = load_checkpoint(os.path.join(work, "A", f"checkpoint-{max(hashes)}"))
+    log(f"  states equal at every common averaged step {sorted(hashes)}")
+    return dict(wall_s=wall_s, slices=reports, common_steps=sorted(hashes),
+                states_equal_every_round=True, state_sha256=hashes[max(hashes)][0],
+                checkpoint=os.path.join(work, tag, "A", f"checkpoint-{max(hashes)}"))
+
+
+def _report(run: dict) -> dict:
+    """``two_slices``' result without the logs and events it read."""
+    out = dict(run)
+    out["slices"] = {p: {k: v for k, v in r.items() if k not in ("events", "text")}
+                     for p, r in run["slices"].items()}
+    return out
+
+
+def mesh_cli(seed: int, work: str) -> dict:
+    """Two tp2 slices (dp1 x tp2) as two peers through the trainer CLI;
+    their checkpoint is a one-device peer's (names, shapes, loads)."""
+    from dedloc_tpu_torch.models import convert
+    from dedloc_tpu_torch.roles.common import build_model, build_optimizer
+    from dedloc_tpu_torch.core.config import TrainingArguments
+    from dedloc_tpu_torch.parallel.train_step import TrainState
+    from dedloc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    run = two_slices(seed, work, "mesh", ["--training.mesh_devices", "2",
+                                          "--training.mesh_model_devices", "2"],
+                     MESH_CLI_STEPS)
+    named, _meta = load_checkpoint(run["checkpoint"])
     _cfg, model = build_model("large", device="cpu", seed=seed)
     tx = build_optimizer(TrainingArguments(model_size="large", warmup_steps=0))
     schema = {k: tuple(v.shape) for k, v in tx.state_views(
         dict(model.named_parameters()),
         TrainState.create(dict(model.named_parameters()), tx).opt_state).items()}
-    if {k: tuple(np_shape) for k, np_shape in
-            ((k, v.shape) for k, v in named.items())} != schema:
+    if {k: tuple(v.shape) for k, v in named.items()} != schema:
         fail("mesh: the slice's checkpoint names/shapes differ from a one-device peer's")
     model.load_state_dict(convert.params_from_checkpoint(named))
-    log(f"  states equal at every common averaged step {sorted(hashes)}; "
-        f"checkpoint-{max(hashes)} loads into the one-device model")
-    return dict(wall_s=wall_s, slices=reports, common_steps=sorted(hashes),
-                states_equal_every_round=True, state_sha256=hashes[max(hashes)][0],
-                checkpoint_schema_one_device=True)
+    log(f"  {os.path.basename(run['checkpoint'])} loads into the one-device model")
+    return dict(_report(run), checkpoint_schema_one_device=True)
+
+
+def overlap_slices_cli(seed: int, work: str) -> dict:
+    """Two dp2 ALBERT slices as two peers with
+    ``--optimizer.overlap_averaging``: every round averages in the
+    background while the ranks accumulate, and lands one boundary late. At
+    least one late apply per peer (its telemetry's ``opt.overlap_applied``)
+    and the overlap ledger's hidden and exposed seconds."""
+    run = two_slices(seed, work, "overlap", ["--training.mesh_devices", "2"],
+                     OVERLAP_CLI_STEPS, OVERLAP_CLI_TARGET,
+                     ("--optimizer.overlap_averaging", "true"))
+    for peer, rep in run["slices"].items():
+        events = rep["events"]
+        applied = [e for e in events if e.get("event") == "opt.overlap_applied"]
+        ledger = [e for e in events if e.get("event") == "opt.overlap_ledger"]
+        if not applied:
+            fail(f"overlap: slice {peer} applied no round late:\n{rep['text'][-3000:]}")
+        rep.update(late_applies=len(applied),
+                   launched=sum(e.get("event") == "opt.overlap_launched" for e in events),
+                   failed=sum(e.get("event") == "opt.overlap_failed" for e in events),
+                   hidden_s=sum(e.get("hidden_s", 0.0) for e in ledger),
+                   exposed_s=sum(e.get("exposed_s", 0.0) for e in ledger),
+                   ledger=[{k: e.get(k) for k in ("round_id", "mode", "hidden_s",
+                                                  "exposed_s", "efficiency")}
+                           for e in ledger])
+        log(f"  overlap slice {peer}: {rep['late_applies']} late applies, hidden "
+            f"{rep['hidden_s']:.3f} s, exposed {rep['exposed_s']:.3f} s")
+    return _report(run)
+
+
+def swav_slice_cli(seed: int, work: str) -> dict:
+    """The SwAV peer as a dp2 slice through ``python -m
+    dedloc_tpu_torch.roles.swav --training.mesh_devices 2`` under torchrun
+    at full width (16 images a rank, queue 3,840 from global step 1), a
+    solo peer for SWAV_SLICE_CLI_BOUNDARIES boundaries; its checkpoint
+    loads into a one-device port peer (names, shapes)."""
+    from dedloc_tpu_torch.models.swav import SwAVConfig, init_swav
+    from dedloc_tpu_torch.roles.swav import checkpoint_tree, restore_checkpoint
+    from dedloc_tpu_torch.utils.checkpoint import load_latest_checkpoint
+
+    out_dir = os.path.join(work, "swav_slice")
+    cmd = _torchrun(2, "-m", "dedloc_tpu_torch.roles.swav",
+                    "--dht.experiment_prefix", "chip-smoke-swav-slice",
+                    "--dht.listen_host", "127.0.0.1",
+                    "--dht.listen_port", str(_free_port()),
+                    "--training.mesh_devices", "2",
+                    "--training.per_device_batch_size", str(SWAV_BATCH // 2),
+                    "--training.max_local_steps", str(SWAV_SLICE_CLI_BOUNDARIES),
+                    "--training.queue_length", str(SWAV_QUEUE),
+                    "--training.queue_start_step", "1",
+                    "--training.seed", str(seed),
+                    "--training.save_steps", "1", "--training.save_total_limit", "1",
+                    "--training.output_dir", out_dir,
+                    "--optimizer.target_batch_size", str(SWAV_BATCH),
+                    "--checkpoint.cache_dir", "none",
+                    "--averager.averaging_expiration", "0.5",
+                    "--averager.min_refresh_period", "0.2",
+                    "--averager.default_refresh_period", "0.5",
+                    "--averager.metadata_expiration", "300")
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "swav_slice.log"), "w") as logf:
+        proc = subprocess.run(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=420, start_new_session=True)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(work, "swav_slice.log")) as f:
+        text = f.read()
+    if proc.returncode:
+        fail(f"swav_slice: the slice exited {proc.returncode}:\n{text[-3000:]}")
+    if "swav slice mesh: {'data': 2}" not in text or "backend gloo" not in text:
+        fail(f"swav_slice: no dp2 gloo slice in the log:\n{text[-3000:]}")
+    applied = re.findall(r"global step (\d+): loss ([-\d.naif]+) \(apply (\w+), group (\d+)\)",
+                         text)
+    losses = [float(a[1]) for a in applied]
+    if not applied or any(a[2] != "leaf" for a in applied) or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"swav_slice: global steps {applied} (want at least one, finite, "
+             f"through the slice's per-leaf apply):\n{text[-3000:]}")
+    if "queue engaged" not in text and int(applied[-1][0]) > 1:
+        fail(f"swav_slice: the queue never engaged:\n{text[-3000:]}")
+    step, tree, _meta = load_latest_checkpoint(out_dir)
+    model, params, stats = init_swav(SwAVConfig(), seed + 7, "cuda")
+    want = {k: v.shape for k, v in checkpoint_tree(params, stats).items()}
+    if {k: tuple(v.shape) for k, v in tree.items()} != want:
+        fail("swav_slice: the slice's checkpoint names/shapes differ from a "
+             "one-device peer's")
+    stats = restore_checkpoint(tree, params, stats)
+    if not all(torch.isfinite(t).all() for t in list(stats.values()) + list(params.values())):
+        fail("swav_slice: non-finite state in the slice's checkpoint")
+    out = dict(wall_s=wall_s, boundaries=SWAV_SLICE_CLI_BOUNDARIES,
+               global_steps=[int(a[0]) for a in applied], losses=losses,
+               checkpoint_step=step, checkpoint_loads_one_device=True,
+               queue_engaged="queue engaged" in text)
+    log(f"  swav slice peer: {json.dumps(out)}")
+    del model, params, stats
+    return out
 
 
 def phase_mesh(seed: int) -> dict:
@@ -3257,9 +3618,14 @@ def phase_mesh(seed: int) -> dict:
         runs = mesh_steps_on_card(seed, work)
         log("[mesh] two torchrun slices (tp2) as peers through the trainer CLI")
         cli = mesh_cli(seed, work)
+        log("[mesh] the SwAV peer as a dp2 slice through its CLI")
+        swav_slice = swav_slice_cli(seed, work)
+        log("[mesh] two dp2 slices as peers with overlap averaging")
+        overlap = overlap_slices_cli(seed, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(runs=runs, cli=cli, phase_s=time.perf_counter() - t0)
+    return dict(runs=runs, cli=cli, swav_slice=swav_slice, overlap_slices=overlap,
+                phase_s=time.perf_counter() - t0)
 
 
 def _kind(name: str) -> str:
@@ -3373,6 +3739,11 @@ def main(argv=None) -> int:
             rows[-1]["launches_mesh_per_rank_per_step"] = {
                 cell: [counts[name] for counts in run["launches_per_step_per_rank"]]
                 for cell, run in mesh["runs"].items()}
+            # the two overlapping dp2 slices: rank 0's launches, and per boundary
+            rows[-1]["launches_overlap_slices"] = {
+                peer: dict(total=rep["kernel_launches"][name],
+                           per_boundary=rep["kernel_launches"][name] / rep["boundaries"])
+                for peer, rep in mesh["overlap_slices"]["slices"].items()}
         if rows[-1]["route"] == "cuda":
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with

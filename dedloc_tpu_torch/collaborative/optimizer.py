@@ -277,11 +277,6 @@ class CollaborativeOptimizer:
         assert not (client_mode and auxiliary), "an auxiliary peer must listen"
         self._slice = None
         if mesh is not None and mesh.size > 1:
-            if overlap_averaging:
-                raise ValueError(
-                    "overlap_averaging on a slice mesh is not ported yet: its "
-                    "restore path would add full gradients into the ranks' "
-                    "blocks (ROADMAP A6)")
             from dedloc_tpu_torch.collaborative.slice import Slice
 
             self._slice = Slice(mesh, tx, param_sharding, opt_state_sharding)
@@ -480,8 +475,11 @@ class CollaborativeOptimizer:
         state, out_acc, out_n, stepped = self._step(state, grad_acc, n_acc, samples)
         if out_acc is self._slice.gathered:
             # a round to retry keeps the accumulation: the ranks' own parts
-            out_acc, out_n = grad_acc, n_acc
-        self._slice.end(stepped, out_acc is not grad_acc, self.local_step)
+            out_acc, out_n = self._slice.live
+        # an overlapped launch commits every rank's parts (Slice.commit);
+        # a restore added them back into grad_acc in place
+        out_acc, out_n = self._slice.end(stepped, out_acc is not grad_acc,
+                                         self.local_step, out_acc, out_n)
         return state, out_acc, out_n, stepped
 
     def _step(self, state: TrainState, grad_acc, n_acc, samples: int):
@@ -703,7 +701,7 @@ class CollaborativeOptimizer:
         if self._slice is not None:
             # the slice's whole gradient sums, under the single-device
             # names and shapes
-            grad_acc = self._slice.collect_grads(grad_acc)
+            grad_acc = self._slice.collect_grads(grad_acc, n_acc)
         n = max(int(n_acc), 1)
         # contribution cap: sample-weighted averaging assumes equal
         # per-sample gradient quality, so the cap scales with OUR samples
@@ -858,11 +856,16 @@ class CollaborativeOptimizer:
             # restore material for a failed overlapped round: with the
             # device pipeline the RAW accumulator tree stays on device (the
             # restore is then a device-side add, no host round-trip); the
-            # legacy path keeps the host named copy as before
-            restore = (
-                ("acc", grad_acc, n_acc) if pipeline is not None
-                else ("named", named, n)
-            )
+            # legacy path keeps the host named copy as before. On a slice
+            # every rank keeps its own parts (Slice.commit): the gathered
+            # full sums would count the other ranks' parts again
+            if self._slice is not None:
+                self._slice.commit()
+                restore = ("slice",)
+            elif pipeline is not None:
+                restore = ("acc", grad_acc, n_acc)
+            else:
+                restore = ("named", named, n)
             return self._launch_overlap(
                 state, restore, contrib, ef_commit, collab,
                 weight_scale, expected_size, window, partners_certain,
@@ -1134,8 +1137,10 @@ class CollaborativeOptimizer:
         committed to the in-flight round (accumulators reset); the averaged
         update lands at a later boundary — one boundary of staleness, by
         contract. ``restore`` is either ("acc", grad_acc, n_acc) — the raw
-        device accumulators, restored by a device-side add on failure — or
-        the legacy ("named", host_mean_tree, n_micro)."""
+        device accumulators, restored by a device-side add on failure —,
+        ("slice",) — each rank of a slice keeps and restores its own
+        committed parts — or the legacy ("named", host_mean_tree,
+        n_micro)."""
         round_id = f"step{collab.optimizer_step}"
         fut = self.averager.step(
             contrib,
@@ -1263,6 +1268,8 @@ class CollaborativeOptimizer:
                     inflight["commit"], group_size,
                     inflight.get("lossy_d2h", False),
                 )
+            if self._slice is not None:
+                self._slice.consumed()
             if tele is not None:
                 tele.counter("opt.overlap_applied").inc()
                 tele.event(
@@ -1288,7 +1295,10 @@ class CollaborativeOptimizer:
                 "falling back to synchronous averaging"
             )
         restore = inflight["restore"]
-        if restore[0] == "acc":
+        if restore[0] == "slice":
+            # every rank adds its own committed parts back, in place
+            n_acc = self._slice.restore(grad_acc, n_acc)
+        elif restore[0] == "acc":
             # device pipeline: the raw accumulators never left the card —
             # merge them back with one device-side add, no host round-trip
             _tag, old_acc, old_n = restore

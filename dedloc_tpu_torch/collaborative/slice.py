@@ -20,8 +20,19 @@ the same order (``follow``):
   state sharing and checkpoints (rank 0 keeps them);
 - ``adopt``: a full named state (a peer's, a checkpoint's) broadcast, each
   rank keeping its blocks;
+- ``restore``: an overlapped round failed: each rank adds the parts it
+  committed to that round back into its accumulator;
 - ``end``: the boundary is over: whether a global step was applied, whether
-  the accumulator restarts, and the collaboration's step number.
+  the accumulator restarts, whether this boundary committed the
+  accumulation to a background (overlapped) round, and the collaboration's
+  step number.
+
+**Overlap averaging on a slice.** Rank 0 averages the gathered full sums
+in the background while every rank accumulates the next micro-batches.
+Each rank keeps the parts it committed (``committed``) until the flight
+resolves: a landed round consumes them and the late apply keeps every
+rank's in-flight accumulation; a failed one restores each rank's own parts
+(never the full sums, which would count every other rank's part again).
 """
 from __future__ import annotations
 
@@ -41,7 +52,8 @@ from dedloc_tpu_torch.parallel.train_step import (
     zeros_like_grads,
 )
 
-_MOMENT = re.compile(r"^\[1\]\[\d+\]\.(mu|nu)(.*)$")
+# an optimizer's per-parameter state: LAMB's moments, LARS's momentum
+_MOMENT = re.compile(r"^\[1\]\[\d+\]\.(mu|nu|momentum)(.*)$")
 
 
 class Slice:
@@ -57,8 +69,14 @@ class Slice:
         self.mspecs: Mapping[str, P] = (opt_state_sharding.mu
                                         if opt_state_sharding is not None
                                         else self.pspecs)
-        # the full tensors rank 0 collected at this boundary (``grads``)
+        # the full tensors rank 0 collected at this boundary (``grads``),
+        # and the (accumulator, count) of this rank they were summed from
         self.gathered: Optional[Dict[str, torch.Tensor]] = None
+        self.live: Optional[Tuple[Dict[str, torch.Tensor], int]] = None
+        # this rank's (accumulator, count) committed to an overlapped round
+        # still in flight; ``end(commit=True)`` on rank 0 asks for it
+        self.committed: Optional[Tuple[Dict[str, torch.Tensor], int]] = None
+        self._commit = False
 
     # ------------------------------------------------------------- layout
 
@@ -77,7 +95,9 @@ class Slice:
 
     def state_specs(self, names, params: Mapping[str, torch.Tensor]) -> Dict[str, P]:
         """Specs (JAX layout) of the shared-state names: ``[0]`` params,
-        the moments under ``[1][i].mu``/``.nu``, counts replicated."""
+        LAMB's moments under ``[1][i].mu``/``.nu`` and LARS's momentum
+        under ``[1][0].momentum`` as the moment layout, counts
+        replicated."""
         by_jax = {grad_name(n, p.ndim)[0]: n for n, p in params.items()}
         out = {}
         for key in names:
@@ -142,10 +162,48 @@ class Slice:
 
     # -------------------------------------------------- rank 0's commands
 
-    def collect_grads(self, grad_acc) -> Dict[str, torch.Tensor]:
+    def _restore_local(self, grad_acc, n_acc: int) -> int:
+        """Add this rank's committed parts into ``grad_acc`` in place; the
+        new count."""
+        parts, n = self.committed
+        self.committed = None
+        with torch.no_grad():
+            for k, a in grad_acc.items():
+                a.add_(parts[k])
+        return n_acc + n
+
+    def _settle(self, grad_acc, n_acc: int, commit: bool, inflight: bool):
+        """``end``'s bookkeeping of the committed parts, on every rank:
+        (accumulator, count) to carry on with."""
+        if commit:
+            self.committed = (grad_acc, n_acc)
+            return zeros_like_grads(grad_acc), 0
+        if not inflight:
+            self.committed = None  # the flight landed and consumed them
+        return grad_acc, n_acc
+
+    def collect_grads(self, grad_acc, n_acc: int = 0) -> Dict[str, torch.Tensor]:
         self._send("grads")
+        self.live = (grad_acc, n_acc)
         self.gathered = self.full_grads(grad_acc)
         return self.gathered
+
+    def commit(self) -> None:
+        """This boundary's accumulation goes to an overlapped round: at
+        ``end`` every rank keeps its parts as ``committed`` and starts a
+        fresh accumulator."""
+        self._commit = True
+
+    def consumed(self) -> None:
+        """The overlapped round landed: its committed parts are spent (the
+        other ranks drop theirs at ``end``)."""
+        self.committed = None
+
+    def restore(self, grad_acc, n_acc: int) -> int:
+        """The overlapped round failed: every rank adds its committed parts
+        back (rank 0's into ``grad_acc``, in place); the new count."""
+        self._send("restore")
+        return self._restore_local(grad_acc, n_acc)
 
     def apply(self, apply_fn, state: TrainState, mean_grads):
         self._send("apply")
@@ -176,9 +234,18 @@ class Slice:
         self._send("adopt", (dict(named), int(step)))
         return self._adopt_local(state, named, step)
 
-    def end(self, stepped: bool, reset: bool, local_step: int) -> None:
-        self._send("end", (bool(stepped), bool(reset), int(local_step)))
-        self.gathered = None
+    def end(self, stepped: bool, reset: bool, local_step: int,
+            grad_acc=None, n_acc: int = 0):
+        """Close the boundary on every rank; rank 0's (accumulator, count)
+        to carry on with (``grad_acc`` kept unless it committed)."""
+        commit, self._commit = self._commit, False
+        inflight = self.committed is not None or commit
+        self._send("end", (bool(stepped), bool(reset), int(local_step),
+                           commit, inflight))
+        if commit:
+            grad_acc, n_acc = self.live  # rank 0's own parts of the round
+        self.gathered = self.live = None
+        return self._settle(grad_acc, n_acc, commit, inflight)
 
     # -------------------------------------------------- the other ranks
 
@@ -196,9 +263,12 @@ class Slice:
             elif cmd == "adopt":
                 named, step = payload
                 state = self._adopt_local(state, named, step)
+            elif cmd == "restore":
+                n_acc = self._restore_local(grad_acc, n_acc)
             elif cmd == "end":
-                stepped, reset, local_step = payload
-                if reset:
+                stepped, reset, local_step, commit, inflight = payload
+                grad_acc, n_acc = self._settle(grad_acc, n_acc, commit, inflight)
+                if reset and not commit:
                     grad_acc, n_acc = zeros_like_grads(state.params), 0
                 return state, grad_acc, n_acc, stepped, local_step
             else:

@@ -25,8 +25,14 @@ dict that a forward takes and returns, as the JAX step carries
 ``batch_stats``. Every mean over a Python-number count divides through
 ``utils/device.py`` ``divide`` (IEEE on CUDA too).
 
-The multi-device batch norm (the JAX module's ``bn_axis_name``) comes with
-the parallel-axes slice.
+On a slice mesh (``parallel/mesh.py``) each rank holds its rows of the
+batch and a batch norm's statistics are the slice's, as GSPMD makes them
+for the JAX module under a sharded batch: one all-reduce per layer of the
+per-channel sums, sums of squares and row count over the ``data`` axis
+(flax's one ``pmean`` of ``[mean, mean2]``), whose backward all-reduces
+the cotangent too (``copy_to(psum(.))``): each rank's rows reach the
+statistics, so every rank's ``x`` gradient takes the other ranks' terms.
+Every rank then holds bitwise-equal running statistics.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dedloc_tpu_torch.parallel.mesh import copy_to, psum
 from dedloc_tpu_torch.utils.device import divide
 
 Stats = Dict[str, torch.Tensor]
@@ -75,18 +82,34 @@ def _mean(x: torch.Tensor, dims) -> torch.Tensor:
     return divide(x.sum(dims), count)
 
 
+def _slice_moments(x: torch.Tensor, dims, mesh):
+    """(mean, mean of squares) per channel over the slice's rows: this
+    rank's sums and row count all-reduced over ``data`` in one collective
+    whose backward all-reduces the cotangent."""
+    count = math.prod(x.shape[d] for d in dims)
+    local = torch.cat([x.sum(dims), (x * x).sum(dims),
+                       x.new_full((1,), float(count))])
+    total = copy_to(psum(local, mesh, "data"), mesh, "data")
+    c = x.shape[1]
+    n = total[2 * c].detach()
+    return total[:c] / n, total[c:2 * c] / n
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over every axis but the channels (axis 1),
     with fp32 statistics. ``stats_name`` is the module path its running
-    statistics are keyed by (set by the root model)."""
+    statistics are keyed by (set by the root model). With a ``mesh`` the
+    statistics are the slice's (module docstring)."""
 
-    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 mesh=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))  # flax "scale"
         self.bias = nn.Parameter(torch.zeros(features))
         self.momentum = momentum
         self.eps = eps
         self.stats_name = ""
+        self.mesh = mesh
 
     def forward(self, x: torch.Tensor, stats: Stats, train: bool) -> torch.Tensor:
         """Normalise ``x`` ([N, C, ...]) in fp32; in training mode, replace
@@ -95,8 +118,11 @@ class BatchNorm(nn.Module):
         key = self.stats_name
         if train:
             dims = [d for d in range(x.dim()) if d != 1]
-            mean = _mean(x, dims)
-            var = torch.clamp_min(_mean(x * x, dims) - mean * mean, 0.0)
+            if self.mesh is not None and self.mesh.group("data") is not None:
+                mean, mean2 = _slice_moments(x, dims, self.mesh)
+            else:
+                mean, mean2 = _mean(x, dims), _mean(x * x, dims)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             m = self.momentum
             stats[key + ".mean"] = m * stats[key + ".mean"] + (1 - m) * mean.detach()
             stats[key + ".var"] = m * stats[key + ".var"] + (1 - m) * var.detach()
@@ -129,12 +155,13 @@ def conv(x: torch.Tensor, weight: torch.Tensor, dtype, stride: int,
 
 class ConvBN(nn.Module):
     def __init__(self, cfg: ResNetConfig, in_features: int, features: int,
-                 kernel: int = 3, stride: int = 1, use_relu: bool = True):
+                 kernel: int = 3, stride: int = 1, use_relu: bool = True,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.stride, self.padding, self.use_relu = stride, kernel // 2, use_relu
         self.conv = nn.Conv2d(in_features, features, kernel, bias=False)
-        self.bn = BatchNorm(features, cfg.bn_momentum, cfg.bn_eps)
+        self.bn = BatchNorm(features, cfg.bn_momentum, cfg.bn_eps, mesh)
 
     def forward(self, x, stats: Stats, train: bool):
         y = conv(x, self.conv.weight, self.cfg.dtype, self.stride, self.padding)
@@ -147,13 +174,15 @@ class Bottleneck(nn.Module):
     where the residual's shape changes."""
 
     def __init__(self, cfg: ResNetConfig, in_features: int, features: int,
-                 stride: int = 1):
+                 stride: int = 1, mesh=None):
         super().__init__()
-        self.reduce = ConvBN(cfg, in_features, features, 1)
-        self.conv3x3 = ConvBN(cfg, features, features, 3, stride)
-        self.expand = ConvBN(cfg, features, features * 4, 1, use_relu=False)
+        self.reduce = ConvBN(cfg, in_features, features, 1, mesh=mesh)
+        self.conv3x3 = ConvBN(cfg, features, features, 3, stride, mesh=mesh)
+        self.expand = ConvBN(cfg, features, features * 4, 1, use_relu=False,
+                             mesh=mesh)
         self.proj = (
-            ConvBN(cfg, in_features, features * 4, 1, stride, use_relu=False)
+            ConvBN(cfg, in_features, features * 4, 1, stride, use_relu=False,
+                   mesh=mesh)
             if in_features != features * 4 or stride != 1 else None
         )
 
@@ -186,20 +215,21 @@ def init_batch_stats(root: nn.Module) -> Stats:
 
 class ResNet(nn.Module):
     """Globally pooled ``[N, out_features]`` fp32 trunk features of NHWC
-    images."""
+    images; with a slice ``mesh``, of this rank's images, with the slice's
+    batch statistics."""
 
-    def __init__(self, cfg: ResNetConfig):
+    def __init__(self, cfg: ResNetConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.stem_conv = nn.Conv2d(3, cfg.width, 7, bias=False)
-        self.stem_bn = BatchNorm(cfg.width, cfg.bn_momentum, cfg.bn_eps)
+        self.stem_bn = BatchNorm(cfg.width, cfg.bn_momentum, cfg.bn_eps, mesh)
         in_features = cfg.width
         for stage, n_blocks in enumerate(cfg.stage_sizes):
             for block in range(n_blocks):
                 features = cfg.width * 2 ** stage
                 stride = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"stage{stage}_block{block}",
-                                Bottleneck(cfg, in_features, features, stride))
+                                Bottleneck(cfg, in_features, features, stride, mesh))
                 in_features = features * 4
         name_batch_norms(self)
 

@@ -370,15 +370,17 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
-    """The sum of ``x`` over ``axes`` (a new tensor; x unchanged). Low
-    precision floats are summed in fp32 and rounded once."""
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or another ``op``: ``dist.ReduceOp.MAX``) of ``x`` over
+    ``axes`` (a new tensor; x unchanged). Low precision floats are reduced
+    in fp32 and rounded once."""
     g = mesh.group(axes)
     if g is None:
         return x.clone()
     wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
     buf = _to_wire(mesh, wide)
-    dist.all_reduce(buf, group=g[0])
+    dist.all_reduce(buf, op=op, group=g[0])
     return _from_wire(mesh, buf, x).to(x.dtype)
 
 
@@ -490,6 +492,13 @@ def pmean(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes) -> torch.Tensor:
     from dedloc_tpu_torch.utils.device import divide
 
     return divide(psum(x, mesh, axes), mesh.axis_size(axes))
+
+
+def pmax(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes) -> torch.Tensor:
+    """The elementwise maximum over ``axes``; no gradient."""
+    if mesh is None or mesh.group(axes) is None:
+        return x
+    return all_reduce(x.detach(), mesh, axes, op=dist.ReduceOp.MAX)
 
 
 def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Axes) -> torch.Tensor:

@@ -141,8 +141,10 @@ def _leaf_axes(spec) -> Tuple[str, ...]:
 
 def mesh_update(tx, grads, opt_state, params, mesh, param_sharding=None,
                 opt_state_sharding=None):
-    """One LAMB update on this rank's blocks, out of place: (new params in
-    the parameters' layout, new optimizer state).
+    """One optimizer update on this rank's blocks, out of place: (new
+    params in the parameters' layout, new optimizer state). LAMB takes
+    every layout below; another optimizer (LARS: the JAX SwAV mesh, whose
+    state replicates) takes replicated leaves only.
 
     ``grads`` and ``params`` are this rank's parameter blocks (reduced
     gradients); ``param_sharding``/``opt_state_sharding`` their specs
@@ -157,11 +159,22 @@ def mesh_update(tx, grads, opt_state, params, mesh, param_sharding=None,
     from dedloc_tpu_torch.parallel.sharding import gather_tensor, port_spec
     from dedloc_tpu_torch.parallel.zero import zero_part
 
-    if not isinstance(opt_state, LambState):
-        raise NotImplementedError(
-            "the mesh apply is LAMB's; the SwAV (LARS) mesh is a later slice")
+    lamb = isinstance(opt_state, LambState)
     pspecs = param_sharding or {}
-    mspecs = opt_state_sharding.mu if opt_state_sharding is not None else pspecs
+    mspecs = (opt_state_sharding.mu if lamb and opt_state_sharding is not None
+              else pspecs)
+    if not lamb:
+        fields = ([f for f in opt_state_sharding if isinstance(f, dict)]
+                  if opt_state_sharding is not None else [])
+        split = sorted({a for specs in [pspecs] + fields
+                        for spec in specs.values() for a in spec if a is not None})
+        if split:
+            raise NotImplementedError(
+                f"{type(tx).__name__} on a mesh updates replicated leaves only "
+                f"(the JAX SwAV mesh's layout); ZeRO and tensor or expert "
+                f"parallel leaves (split over {split}) are LAMB's")
+        updates, new_opt = tx.update(grads, opt_state, params)
+        return {n: p + updates[n] for n, p in params.items()}, new_opt
     zparts, axes = {}, {}
     for n, p in params.items():
         m = mspecs.get(n, P())
@@ -310,13 +323,10 @@ def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
     state is taken and nothing waits on the host; the caller reads ``ok``
     later.
 
-    On a mesh the update is ``mesh_update`` on this rank's blocks and
-    ``ok`` is the verdict of the whole slice (every rank's new blocks
-    finite), the same bool on every rank."""
+    On a mesh the update is ``mesh_update`` on this rank's blocks,
+    ``post_apply`` runs on them, and ``ok`` is the verdict of the whole
+    slice (every rank's new blocks finite), the same bool on every rank."""
     sharded = _sharded(mesh)
-    if sharded and post_apply is not None:
-        raise NotImplementedError(
-            "post_apply on a mesh is the SwAV mesh's, a later slice")
 
     @torch.no_grad()
     def apply(state: TrainState, grads):

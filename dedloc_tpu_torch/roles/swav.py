@@ -9,9 +9,19 @@ collaboration step gates the queue and the prototype freeze.
 It runs on the card unless ``DEDLOC_FORCE_CPU=1`` asks for the CPU. The
 batches are the JAX peer's for the same seed (synthetic or an image
 folder); the checkpoint is ``(params, batch_stats)`` under the JAX names
-(``_tree_to_named``), so either package resumes from the other's. One
-device per peer: ``--training.mesh_devices > 1`` (and the sinkhorn's
-all-reduce across devices) comes with the parallel-axes slice.
+(``_tree_to_named``), so either package resumes from the other's.
+
+``--training.mesh_devices N`` makes the peer a slice of N ranks launched by
+torchrun (the JAX role's data-parallel mesh; ``models/swav.py`` has the
+layout and the collectives), still ONE collaboration peer: the slice's
+batch is ``per_device_batch_size x N`` images, every rank draws it from
+the same seed and keeps its part, rank 0 leads the collaboration and
+writes the checkpoints (the running statistics are the same on every
+rank), and the other ranks follow each boundary (``collaborative/
+slice.py``)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m dedloc_tpu_torch.roles.swav --training.mesh_devices 2 ...
 
     python -m dedloc_tpu_torch.roles.swav --dht.experiment_prefix run \\
         --training.per_device_batch_size 32 --optimizer.target_batch_size 64
@@ -22,9 +32,11 @@ from typing import Dict, Iterator, List, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dedloc_tpu_torch.collaborative.metrics import LocalMetrics, publish_metrics
 from dedloc_tpu_torch.collaborative.optimizer import CollaborativeOptimizer
+from dedloc_tpu_torch.collaborative.slice import Slice
 from dedloc_tpu_torch.core.config import SwAVCollaborationArguments, parse_config
 from dedloc_tpu_torch.core.hooks import default_hooks
 from dedloc_tpu_torch.core.trainer import Trainer
@@ -45,7 +57,12 @@ from dedloc_tpu_torch.models.swav import (
 )
 from dedloc_tpu_torch.optim.lars import Lars
 from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
-from dedloc_tpu_torch.parallel.train_step import TrainState, zeros_like_grads
+from dedloc_tpu_torch.parallel.mesh import init_slice, make_mesh
+from dedloc_tpu_torch.parallel.train_step import (
+    TrainState,
+    make_guarded_apply_step,
+    zeros_like_grads,
+)
 from dedloc_tpu_torch.roles.common import (
     build_dht,
     checkpoint_kwargs,
@@ -59,9 +76,10 @@ from dedloc_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 
-def build_swav(args: SwAVCollaborationArguments):
+def build_swav(args: SwAVCollaborationArguments, mesh=None):
     """(cfg, spec, model, tx) for the requested model size; the model's
-    weights are drawn from ``--training.seed`` on the CPU."""
+    weights are drawn from ``--training.seed`` on the CPU (the same on every
+    rank of a slice ``mesh``)."""
     t = args.training
     if t.model_size == "tiny":
         cfg = SwAVConfig.tiny(
@@ -73,7 +91,7 @@ def build_swav(args: SwAVCollaborationArguments):
             queue_length=t.queue_length, queue_start_step=t.queue_start_step
         )
         spec = MultiCropSpec()
-    model = init_weights(SwAVModel(cfg), torch.Generator().manual_seed(t.seed))
+    model = init_weights(SwAVModel(cfg, mesh), torch.Generator().manual_seed(t.seed))
     schedule = linear_warmup_cosine_annealing(
         t.learning_rate, t.warmup_steps, t.total_steps
     )
@@ -143,23 +161,70 @@ def restore_checkpoint(tree: Mapping[str, np.ndarray],
             for name, t in part("[1]").items()}
 
 
+def _resume(t, state: TrainState, batch_stats):
+    """The newest local checkpoint's params (in place) and running
+    statistics: (state, batch_stats, the checkpoint's collaborative step or
+    None). Every rank of a slice reads it; an incompatible one is skipped."""
+    resumed = load_latest_checkpoint(t.output_dir)
+    if resumed is None:
+        return state, batch_stats, None
+    ckpt_step, tree, meta = resumed
+    try:
+        batch_stats = restore_checkpoint(tree, state.params, batch_stats)
+    except (KeyError, ValueError) as e:
+        logger.warning(f"checkpoint incompatible ({e!r}); starting fresh")
+        return state, batch_stats, None
+    logger.info(f"resumed from local checkpoint at step {ckpt_step}")
+    state = TrainState(step=ckpt_step, params=state.params,
+                       opt_state=state.opt_state)
+    return state, batch_stats, int(meta.get("local_step", ckpt_step))
+
+
+def _batches(t, spec, slice_batch: int):
+    """The slice's multicrop batches (every rank of a slice draws them all
+    from ``--training.seed`` and keeps its part)."""
+    if t.image_folder:
+        return image_folder_multicrop_batches(
+            t.image_folder, spec, slice_batch, seed=t.seed
+        )
+    return synthetic_multicrop_batches(spec, slice_batch, seed=t.seed)
+
+
+def _grouped(it: Iterator, k: int) -> Iterator[list]:
+    while True:
+        group = []
+        for _ in range(k):
+            try:
+                group.append(next(it))
+            except StopIteration:
+                # PEP 479: returning ends the generator, so the Trainer
+                # stops gracefully on finite data
+                return
+        yield group
+
+
+def _use_queue(cfg: SwAVConfig, global_step: int) -> bool:
+    return bool(cfg.queue_length and global_step >= cfg.queue_start_step)
+
+
 def run_swav(args: SwAVCollaborationArguments) -> TrainState:
     device = force_cpu_if_requested()
     t = args.training
+    mesh = the_slice = apply_fn = None
     if t.mesh_devices > 1:
-        raise ValueError(
-            "the port's SwAV peer runs on one device: mesh_devices > 1 (and "
-            "the sinkhorn's all-reduce across devices) comes with the "
-            "parallel-axes slice (ROADMAP, queue A)")
-    cfg, spec, model, tx = build_swav(args)
+        init_slice(t.mesh_devices, device.type, t.mesh_device_offset)
+        mesh = make_mesh(t.mesh_devices, ("data",), None, t.mesh_device_offset,
+                         device.type)
+        device = mesh.device
+        logger.info(f"swav slice mesh: {dict(mesh.shape)}, rank {mesh.rank} "
+                    f"on {device}, backend {mesh.backend}")
+    leader = mesh is None or mesh.rank == 0
+    cfg, spec, model, tx = build_swav(args, mesh)
     model = model.to(device)
-    dht, _public_key = build_dht(args)
-    logger.info(f"swav peer DHT listening on {dht.port}")
-    tele, tele_close = configure_role_telemetry(args, _public_key)
 
-    slice_batch = t.per_device_batch_size
-    if slice_batch < 8:
-        # sinkhorn equipartitions THIS peer's local batch over the
+    slice_batch = t.per_device_batch_size * max(1, t.mesh_devices)
+    if slice_batch < 8 and leader:
+        # sinkhorn equipartitions THIS peer's batch (the slice's) over the
         # prototypes: at a handful of global-crop embeddings the transport
         # is pure noise (core/config.py contrib_clip_per_sample)
         logger.warning(
@@ -177,7 +242,25 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
         if cfg.queue_length
         else None
     )
+    # disk resume: the newest checkpoint restores params + batch_stats and
+    # seeds the collaborative counter; a LIVE collaboration below still
+    # wins. LARC momentum is not part of the checkpoint (the reference's
+    # phase resume also rebuilds the optimizer).
+    state, batch_stats, resumed_step = _resume(t, state, batch_stats)
+    if mesh is not None:
+        the_slice = Slice(mesh, tx)
+        apply_fn = make_guarded_apply_step(
+            tx, mesh=mesh, post_apply=make_prototype_post_apply())
+    if not leader:
+        try:
+            return _follow(t, cfg, spec, model, state, batch_stats, queue,
+                           the_slice, apply_fn, mesh, slice_batch)
+        finally:
+            dist.destroy_process_group()
 
+    dht, _public_key = build_dht(args)
+    logger.info(f"swav peer DHT listening on {dht.port}")
+    tele, tele_close = configure_role_telemetry(args, _public_key)
     opt = CollaborativeOptimizer(
         tx,
         dht,
@@ -206,7 +289,7 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
         max_refresh_period=args.averager.max_refresh_period,
         default_refresh_period=args.averager.default_refresh_period,
         # device-flat boundary + fused flat LARS apply (same knobs as the
-        # ALBERT trainer)
+        # ALBERT trainer; the flat apply is off on a slice)
         device_flat=args.optimizer.device_flat,
         flat_opt_factory=(
             _build_flat_lars_factory(t)
@@ -217,41 +300,25 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
         relay=args.dht.relay or None,
         listen_port=args.averager.listen_port,
         advertised_host=args.dht.advertised_host or None,
+        mesh=mesh,
         post_apply=make_prototype_post_apply(),
         verbose=True,
     )
-    # disk resume: the newest checkpoint restores params + batch_stats and
-    # seeds the collaborative counter; a LIVE collaboration below still
-    # wins. LARC momentum is not part of the checkpoint (the reference's
-    # phase resume also rebuilds the optimizer).
-    resumed = load_latest_checkpoint(t.output_dir)
-    if resumed is not None:
-        ckpt_step, tree, meta = resumed
-        try:
-            batch_stats = restore_checkpoint(tree, state.params, batch_stats)
-            state = TrainState(step=ckpt_step, params=state.params,
-                               opt_state=state.opt_state)
-            opt.local_step = int(meta.get("local_step", ckpt_step))
-            logger.info(f"resumed from local checkpoint at step {ckpt_step}")
-        except (KeyError, ValueError) as e:
-            logger.warning(f"checkpoint incompatible ({e!r}); starting fresh")
-            resumed = None  # genuinely fresh: keep cold-start adoption below
+    if resumed_step is not None:
+        opt.local_step = resumed_step
     # a DEEPER live collaboration wins over the disk checkpoint; cold starts
     # keep the unconditional adopt so fresh replicas begin identical
     state = opt.load_state_from_peers(
-        state, only_if_newer=resumed is not None
+        state, only_if_newer=resumed_step is not None
     )
     # share a pre-training snapshot: partners that start while this peer
     # builds must find a provider
     opt.seed_state_sharing(state)
+    if the_slice is not None:
+        the_slice.end(False, False, opt.local_step)
 
-    accumulate = make_swav_accumulate_step(model, cfg)
-    if t.image_folder:
-        batches = image_folder_multicrop_batches(
-            t.image_folder, spec, slice_batch, seed=t.seed
-        )
-    else:
-        batches = synthetic_multicrop_batches(spec, slice_batch, seed=t.seed)
+    accumulate = make_swav_accumulate_step(model, cfg, mesh)
+    batches = _batches(t, spec, slice_batch)
     samples = slice_batch * t.gradient_accumulation_steps
 
     # mutable local (non-collaborative) state, closed over by the step fn
@@ -262,9 +329,7 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
         # one trainer step = one accumulation boundary
         loss = None
         for crops in micro_batches:
-            use_queue = bool(
-                cfg.queue_length and opt.local_step >= cfg.queue_start_step
-            )
+            use_queue = _use_queue(cfg, opt.local_step)
             if use_queue and not local.get("queue_engaged"):
                 local["queue_engaged"] = True
                 logger.info(
@@ -287,7 +352,7 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
                     local["queue"],
                     local["grad_acc"],
                     local["n_acc"],
-                    crop_tensors(crops, device),
+                    crop_tensors(crops, device, slice_batch, mesh),
                     opt.local_step,
                     use_queue,
                 )
@@ -332,19 +397,9 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
             )
         return state, {"loss": loss, "global_step": opt.local_step}
 
-    def grouped(it: Iterator, k: int) -> Iterator[list]:
-        while True:
-            group = []
-            for _ in range(k):
-                try:
-                    group.append(next(it))
-                except StopIteration:
-                    # PEP 479: returning ends the generator, so the Trainer
-                    # stops gracefully on finite data
-                    return
-            yield group
-
     def save_fn(ctx):
+        # a slice's params and running statistics are the same on every
+        # rank: rank 0's are the peer's
         save_checkpoint(
             t.output_dir,
             opt.local_step,
@@ -365,13 +420,35 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
     try:
         state, _ctx = trainer.train(
             state,
-            grouped(batches, t.gradient_accumulation_steps),
+            _grouped(batches, t.gradient_accumulation_steps),
             max_steps=t.max_local_steps or 10**9,
         )
     finally:
         tele_close()
         opt.shutdown()
         dht.shutdown()
+        if mesh is not None:
+            dist.destroy_process_group()
+    return state
+
+
+def _follow(t, cfg: SwAVConfig, spec, model, state: TrainState, batch_stats,
+            queue, the_slice: Slice, apply_fn, mesh, slice_batch: int) -> TrainState:
+    """A slice rank other than 0: its part of the same micro-batches into
+    its own accumulator (the queue and the prototype freeze keyed by the
+    global step rank 0 sends), and each boundary as rank 0 leads it."""
+    state, _acc, _n, _stepped, global_step = the_slice.follow(state, None, 0)
+    accumulate = make_swav_accumulate_step(model, cfg, mesh)
+    grad_acc, n_acc = zeros_like_grads(state.params), 0
+    groups = _grouped(_batches(t, spec, slice_batch), t.gradient_accumulation_steps)
+    for _boundary, micro_batches in zip(range(t.max_local_steps or 10**9), groups):
+        for crops in micro_batches:
+            grad_acc, n_acc, batch_stats, queue, _metrics = accumulate(
+                state.params, batch_stats, queue, grad_acc, n_acc,
+                crop_tensors(crops, mesh.device, slice_batch, mesh),
+                global_step, _use_queue(cfg, global_step))
+        state, grad_acc, n_acc, _stepped, global_step = the_slice.follow(
+            state, grad_acc, n_acc, apply_fn)
     return state
 
 

@@ -64,8 +64,99 @@ _FLEET = (
      '        if not module.endswith(".trainer"):\n'
      '            env["CUDA_VISIBLE_DEVICES"] = ""'),
 )
+# the JAX fleet's workers are TPU VMs (``gcloud compute tpus tpu-vm``); the
+# port's are GCE instances with one H100 each, created as GPU instances
+# must be (terminate on host maintenance), and the spec's defaults name them
+_GCE_GPU = '''class GceGpuProvider(_CliProvider):
+    """gcloud-backed provider on Compute Engine only: every worker
+    (``kind`` "tpu", the fleet's accelerated worker) is an instance with
+    one H100, the coordinator and aux peers plain VMs.
+
+    A GPU instance cannot live-migrate, so it is created with
+    ``--maintenance-policy=TERMINATE``; a spot worker is deleted when it is
+    reclaimed and ``run_cloud_fleet`` recreates it by name. The machine
+    type (``CloudFleetSpec.worker_accelerator``, "a3-highgpu-1g": one H100
+    80GB, from Google Cloud's "GPU machine types" page) and the boot image
+    (a Deep Learning VM image family that carries CUDA) are defaults an
+    operator overrides."""
+
+    def __init__(self, zone: str, dry_run: bool = False,
+                 image_family: str = "common-cu128-ubuntu-2204-nvidia-570",
+                 image_project: str = "deeplearning-platform-release",
+                 boot_disk_gb: int = 200):
+        super().__init__(dry_run)
+        self.zone = zone
+        self.image_family = image_family
+        self.image_project = image_project
+        self.boot_disk_gb = boot_disk_gb
+
+    def create(self, name: str, kind: str, machine: str,
+               startup_script: str, spot: bool) -> None:
+        # the script goes through --metadata-from-file: an inline
+        # --metadata value would need quoting the guest shell must NOT see
+        # (argv exec adds no shell layer to strip it) and commas inside the
+        # script would split metadata entries
+        self.startup_scripts[name] = startup_script
+        self._with_script_file(
+            name, startup_script,
+            lambda path: self._create_with_script(name, kind, machine, path,
+                                                  spot),
+        )
+        if self.dry_run:
+            self._dry_alive.append(name)
+
+    def _create_with_script(self, name: str, kind: str, machine: str,
+                            script_path: str, spot: bool) -> None:
+        argv = [
+            "gcloud", "compute", "instances", "create", name,
+            f"--zone={self.zone}",
+            f"--machine-type={machine}",
+            f"--metadata-from-file=startup-script={script_path}",
+        ]
+        if kind == "tpu":
+            argv += [
+                "--maintenance-policy=TERMINATE",
+                f"--image-family={self.image_family}",
+                f"--image-project={self.image_project}",
+                f"--boot-disk-size={self.boot_disk_gb}GB",
+            ]
+        if spot:
+            argv += ["--provisioning-model=SPOT",
+                     "--instance-termination-action=DELETE"]
+        self._run(argv)
+
+    def list_alive(self) -> List[str]:
+        if self.dry_run:
+            self.commands.append("gcloud compute instances list ...")
+            return list(self._dry_alive)
+        out = self._run([
+            "gcloud", "compute", "instances", "list",
+            f"--zones={self.zone}", "--format=value(name)",
+        ])
+        return [n for n in out.splitlines() if n]
+
+    def delete(self, name: str, kind: str = "tpu") -> None:
+        self._run(["gcloud", "compute", "instances", "delete", name,
+                   f"--zone={self.zone}", "--quiet"])
+'''
+_CLOUD = (
+    ("- ``Provider`` is the seam: ``GcloudTPUProvider`` shells out to ``gcloud``\n"
+     "  (TPU VMs for workers, GCE for coordinator/aux; ``dry_run=True`` prints the",
+     "- ``Provider`` is the seam: ``GceGpuProvider`` shells out to ``gcloud``\n"
+     "  (GCE instances with one H100 for workers, plain VMs for coordinator/aux;\n"
+     "  ``dry_run=True`` prints the"),
+    ('    worker_accelerator: str = "v5litepod-1"  # g4dn-class: one chip per peer',
+     '    worker_accelerator: str = "a3-highgpu-1g"  # one H100 per peer'),
+    ('    zone: str = "us-central2-b"',
+     '    zone: str = "us-central1-a"'),
+    ('    repo_dir: str = "/opt/dedloc_tpu"',
+     '    repo_dir: str = "/srv/dedloc"  # a checkout holding dedloc_tpu_torch'),
+    (None, "class GcloudTPUProvider(_CliProvider):", "class AwsEc2Provider(_CliProvider):",
+     _GCE_GPU + "\n\nclass AwsEc2Provider(_CliProvider):"),
+)
 ADAPTED = {"roles/coordinator.py": _NO_DEVICE, "roles/dht_node.py": _NO_DEVICE,
-           "roles/gateway.py": _NO_DEVICE, "roles/fleet.py": _FLEET}
+           "roles/gateway.py": _NO_DEVICE, "roles/fleet.py": _FLEET,
+           "roles/cloud.py": _CLOUD}
 
 _DOTTED = re.compile(r"\bdedloc_tpu(?=\.| import\b)")
 
@@ -89,14 +180,37 @@ def test_copy_equals_its_source(rel):
     assert (REPO / "dedloc_tpu_torch" / rel).read_text() == _source(rel)
 
 
+def _find(lines, block):
+    """The one index where ``block`` (consecutive whole lines) starts."""
+    at = [i for i in range(len(lines) - len(block) + 1)
+          if lines[i:i + len(block)] == block]
+    assert len(at) == 1, block
+    return at[0]
+
+
+def adapt(rel):
+    """The rewritten source with its ``ADAPTED`` table applied. An entry
+    (old, new) replaces the lines of ``old`` (new None: removes them); an
+    entry (None, first, stop, new) replaces the lines from ``first`` up to
+    the line ``stop``, that line included."""
+    lines = _source(rel).split("\n")
+    for entry in ADAPTED[rel]:
+        if entry[0] is None:
+            _, first, stop, new = entry
+            at = _find(lines, [first])
+            end = _find(lines, [stop]) + 1
+            assert end > at, entry[:3]
+        else:
+            old, new = entry
+            at = _find(lines, old.split("\n"))
+            end = at + len(old.split("\n"))
+        lines[at:end] = [] if new is None else new.split("\n")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("rel", sorted(ADAPTED))
 def test_adapted_copy_differs_from_its_source_only_by_its_table(rel):
-    lines = _source(rel).split("\n")
-    for old, new in ADAPTED[rel]:
-        assert lines.count(old) == 1, old
-        at = lines.index(old)
-        lines[at:at + 1] = [] if new is None else new.split("\n")
-    assert (REPO / "dedloc_tpu_torch" / rel).read_text() == "\n".join(lines)
+    assert (REPO / "dedloc_tpu_torch" / rel).read_text() == adapt(rel)
 
 
 @pytest.mark.parametrize("rel", sorted(EXTENDED))

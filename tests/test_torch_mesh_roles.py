@@ -93,15 +93,17 @@ def _state_hash(out, step):
 def test_two_slice_peers(tmp_path):
     """Two dp1 x tp2 slices (2 ranks each) as two peers of one
     collaboration: each boundary contributes 2 (per device) x 2 (mesh) x 2
-    (accumulation) = 8 samples, the two reach the target of 16 together
-    and average in groups of 2."""
+    (accumulation) = 8 samples, the two reach the target of 32 together in
+    two boundaries and average in groups of 2. (At a target of 16 a slice
+    that started first reached it alone, before its partner's progress
+    record was visible, and stepped solo.)"""
     root_args = parse_config(CollaborationArguments, _flags(tmp_path))
     root, _ = build_dht(root_args)
     try:
         addr = root.get_visible_address()
         mesh = ["--training.mesh_devices", "2", "--training.mesh_model_devices", "2",
-                "--dht.initial_peers", addr, "--optimizer.target_batch_size", "16",
-                "--training.max_local_steps", "6",
+                "--dht.initial_peers", addr, "--optimizer.target_batch_size", "32",
+                "--training.max_local_steps", "8",
                 "--averager.averaging_expiration", "15"]
         for i in (0, 1):
             (tmp_path / f"s{i}").mkdir()

@@ -282,3 +282,235 @@ def zero(rank, world, inputs):
             "sharded": {k: v.numpy() for k, v in new.params.items()},
             "moment_shapes": {k: tuple(v.shape) for k, v in new.opt_state.mu.items()},
             "specs": {k: tuple(v) for k, v in ospecs.mu.items()}}
+
+
+# ------------------------------------------------------------ the SwAV slice
+
+
+def swav_sinkhorn(rank, world, inputs):
+    """The sinkhorn over the slice: each rank holds its B/N rows of the live
+    scores and its share of the queue's rows (``queue_rows``)."""
+    from dedloc_tpu_torch.models.swav import queue_rows, sinkhorn_knopp
+
+    mesh = M.make_mesh(world, ("data",), device_type="cpu")
+    out = []
+    for live, queue, hard in inputs["cases"]:
+        b = live.shape[0] // world
+        parts = [_t(live[rank * b:(rank + 1) * b])]
+        if queue is not None:
+            parts.append(_t(queue[queue_rows(queue.shape[0], mesh)]))
+        q = sinkhorn_knopp(torch.cat(parts), 3, 0.05, hard=hard, mesh=mesh)
+        out.append((q[:b].numpy(), q[b:].numpy()))
+    return out
+
+
+def _bn_run(x, w, weight, bias, mesh):
+    from dedloc_tpu_torch.models.resnet import BatchNorm
+
+    bn = BatchNorm(x.shape[1], 0.9, 1e-5, mesh)
+    with torch.no_grad():
+        bn.weight.copy_(_t(weight))
+        bn.bias.copy_(_t(bias))
+    bn.stats_name = "bn"
+    stats = {"bn.mean": torch.zeros(x.shape[1]), "bn.var": torch.ones(x.shape[1])}
+    x = _t(x).clone().requires_grad_()
+    y = bn(x, stats, True)
+    gx, gw, gb = torch.autograd.grad((y * _t(w)).sum(), [x, bn.weight, bn.bias])
+    return dict(y=y.detach().numpy(), gx=gx.numpy(), gw=gw.numpy(), gb=gb.numpy(),
+                mean=stats["bn.mean"].numpy(), var=stats["bn.var"].numpy(),
+                stats_digest=_digest(torch.cat([stats["bn.mean"], stats["bn.var"]])))
+
+
+def swav_bn(rank, world, inputs):
+    """A batch norm over the slice's rows (this rank's B/N of them): its
+    output, running statistics and the gradients of a loss summed over
+    the ranks; then the same with the statistics' reduction passing the
+    gradient through (a plain ``psum``)."""
+    from dedloc_tpu_torch.models import resnet
+
+    mesh = M.make_mesh(world, ("data",), device_type="cpu")
+    b = inputs["x"].shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    args = (inputs["x"][rows], inputs["w"][rows], inputs["weight"], inputs["bias"])
+    out = _bn_run(*args, mesh)
+    copy_to = resnet.copy_to
+    resnet.copy_to = lambda x, _mesh, _axes: x
+    try:
+        out["gx_passthrough"] = _bn_run(*args, mesh)["gx"]
+    finally:
+        resnet.copy_to = copy_to
+    return out
+
+
+def _swav_tiny_fp32(mesh, seed, queue_length):
+    from dedloc_tpu_torch.models.resnet import ResNetConfig
+    from dedloc_tpu_torch.models.swav import SwAVConfig, init_swav
+
+    cfg = SwAVConfig.tiny(trunk=ResNetConfig.tiny(dtype=torch.float32),
+                          queue_length=queue_length)
+    model, params, stats = init_swav(cfg, seed, "cpu", mesh)
+    return cfg, model, params, stats
+
+
+def swav_steps(rank, world, inputs):
+    """Micro-batches of the tiny fp32 SwAV through the accumulate step on a
+    data-parallel slice: the losses, the gradient sums over the ranks, the
+    running statistics and the queue after each micro-batch."""
+    from dedloc_tpu_torch.models.swav import (
+        SwAVQueue,
+        crop_tensors,
+        make_swav_accumulate_step,
+    )
+    from dedloc_tpu_torch.parallel.train_step import reduce_grads, zeros_like_grads
+
+    mesh = M.make_mesh(world, ("data",), device_type="cpu")
+    cfg, model, params, stats = _swav_tiny_fp32(mesh, inputs["seed"],
+                                                inputs["queue"].shape[1])
+    step = make_swav_accumulate_step(model, cfg, mesh)
+    queue = SwAVQueue(_t(inputs["queue"]).clone())
+    grad_acc, n = zeros_like_grads(params), 0
+    out = {"losses": [], "stats": [], "queues": [], "digests": []}
+    for crops, use_queue in inputs["micro"]:
+        grad_acc, n, stats, queue, metrics = step(
+            params, stats, queue, grad_acc, n,
+            crop_tensors(crops, "cpu", inputs["batch"], mesh), 0, use_queue)
+        out["losses"].append(float(metrics["loss"]))
+        out["stats"].append(convert.params_to_jax(stats))
+        out["queues"].append(queue.embeddings.numpy().copy())
+        out["digests"].append({"stats": {k: _digest(v) for k, v in stats.items()},
+                               "queue": _digest(queue.embeddings)})
+    summed = reduce_grads(grad_acc, mesh)
+    out["grads"] = convert.params_to_jax(summed)
+    out["grads_digest"] = {k: _digest(v) for k, v in summed.items()}
+    out["n"] = n
+    return out
+
+
+def swav_lars(rank, world, inputs):
+    """The guarded LARS apply with the prototype post_apply on a slice,
+    against the one-device guarded apply on the same mean gradients, over
+    three steps; then a step whose gradient is non-finite on the last rank
+    only, which the slice's verdict rolls back on every rank."""
+    from dedloc_tpu_torch.models.swav import make_prototype_post_apply
+    from dedloc_tpu_torch.optim.lars import Lars
+    from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
+    from dedloc_tpu_torch.parallel.train_step import TrainState, make_guarded_apply_step
+
+    mesh = M.make_mesh(world, ("data",), device_type="cpu")
+    _cfg, _model, params, _stats = _swav_tiny_fp32(None, inputs["seed"], 0)
+    tx = Lars(linear_warmup_cosine_annealing(0.6, 2, 50), momentum=0.9,
+              weight_decay=1e-6)
+    fresh = lambda: TrainState.create(
+        {n: p.detach().clone() for n, p in params.items()}, tx)
+    post = make_prototype_post_apply()
+    sliced, single = fresh(), fresh()
+    slice_apply = make_guarded_apply_step(tx, mesh=mesh, post_apply=post)
+    one_apply = make_guarded_apply_step(tx, post_apply=post)
+    out = {"equal": [], "oks": []}
+    for grads in inputs["grads"]:
+        grads = {n: _t(g) for n, g in grads.items()}
+        sliced, ok = slice_apply(sliced, grads)
+        single, ok1 = one_apply(single, grads)
+        out["oks"].append((bool(ok), bool(ok1)))
+        out["equal"].append(all(
+            torch.equal(sliced.params[n], single.params[n])
+            and torch.equal(sliced.opt_state.momentum[n], single.opt_state.momentum[n])
+            for n in params))
+    before = {n: p.clone() for n, p in sliced.params.items()}
+    mom = {n: m.clone() for n, m in sliced.opt_state.momentum.items()}
+    count = int(sliced.opt_state.schedule_count)
+    bad = {n: _t(g) for n, g in inputs["grads"][-1].items()}
+    if rank == world - 1:
+        name = sorted(bad)[0]
+        bad[name] = bad[name].clone()
+        bad[name].view(-1)[0] = float("nan")
+    sliced, ok = slice_apply(sliced, bad)
+    out["nan_ok"] = bool(ok)
+    out["rolled_back"] = (
+        all(torch.equal(sliced.params[n], before[n]) for n in before)
+        and all(torch.equal(sliced.opt_state.momentum[n], mom[n]) for n in mom)
+        and int(sliced.opt_state.schedule_count) == count
+        and int(sliced.step) == len(inputs["grads"]))
+    out["digest"] = _digest(torch.cat([p.reshape(-1) for p in sliced.params.values()]))
+    return out
+
+
+# ------------------------------------------------- overlap averaging on a slice
+
+
+def overlap_peer(inputs, mesh=None):
+    """A tiny fp32 ALBERT peer whose optimizer averages in the background
+    through ``tests/test_torch_overlap.py``'s stub averager, run through
+    ``inputs["scenario"]``: "success" launches a round at boundary 1, keeps
+    accumulating at boundary 2 while it flies, lands it (the averaged result
+    is the peer's own contribution) and applies it one boundary late at
+    boundary 3; "failure" launches at boundary 1, fails the round and its
+    synchronous fallback at boundary 2. On a slice ``mesh`` rank 0 is the
+    peer and the other ranks follow. Returns the params, the accumulator
+    summed over the slice, its count and the boundaries' outcomes."""
+    from dedloc_tpu_torch.collaborative.slice import Slice
+    from dedloc_tpu_torch.models.albert import AlbertConfig, AlbertForPreTraining
+    from dedloc_tpu_torch.optim.lamb import Lamb
+    from dedloc_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_accumulate_step,
+        make_guarded_apply_step,
+        reduce_grads,
+        zeros_like_grads,
+    )
+    from dedloc_tpu_torch.roles.common import build_loss_fn, drop_collator_keys
+    from test_torch_overlap import stub_optimizer
+
+    over = dict(inputs["cfg"], mesh=mesh) if mesh is not None else inputs["cfg"]
+    model = AlbertForPreTraining(AlbertConfig.tiny(**over))
+    model.load_state_dict(convert.params_from_jax(inputs["weights"]))
+    params = dict(model.named_parameters())
+    tx = Lamb(**inputs["lamb"])
+    state = TrainState.create(params, tx)
+    leader = mesh is None or mesh.rank == 0
+    opt = stub = dht = the_slice = apply_fn = None
+    if leader:
+        opt, stub, _holder, dht = stub_optimizer(tx, mesh=mesh, compression="none")
+    else:
+        the_slice = Slice(mesh, tx)
+        apply_fn = make_guarded_apply_step(tx, mesh=mesh)
+    accumulate = make_accumulate_step(build_loss_fn(model))
+    grad_acc, n_acc, stepped = zeros_like_grads(params), 0, []
+    script = {"success": ["launch", "fly", "land"], "failure": ["launch", "fail"]}
+    try:
+        for boundary, (what, host) in enumerate(zip(script[inputs["scenario"]],
+                                                    inputs["batches"])):
+            batch = (M.put_batch(host, mesh) if mesh is not None
+                     else drop_collator_keys(host, device="cpu"))
+            grad_acc, n_acc, _m = accumulate(params, grad_acc, n_acc, batch)
+            if leader and what == "land":
+                stub.resolve(({k: np.asarray(v).copy()
+                               for k, v in stub.calls[0]["tree"].items()}, 2))
+            if leader and what == "fail":
+                stub.resolve((None, 2))
+                stub.sync_results.append((None, 2))
+            if leader:
+                state, grad_acc, n_acc, done = opt.step(state, grad_acc, n_acc, 16)
+            else:
+                state, grad_acc, n_acc, done, _s = the_slice.follow(
+                    state, grad_acc, n_acc, apply_fn)
+            stepped.append(bool(done))
+        out = {"stepped": stepped, "n_acc": n_acc,
+               "params": convert.params_to_jax({k: v.detach() for k, v in params.items()})}
+        summed = reduce_grads(grad_acc, mesh) if mesh is not None else grad_acc
+        out["acc"] = convert.params_to_jax(summed)
+        if leader:
+            out["calls"] = [c["return_future"] for c in stub.calls]
+            out["cooldown"] = opt._overlap_cooldown
+            out["committed"] = None if mesh is None else opt._slice.committed is not None
+        else:
+            out["committed"] = the_slice.committed is not None
+        return out
+    finally:
+        if leader:
+            opt.shutdown()
+            dht.shutdown()
+
+
+def overlap_slice(rank, world, inputs):
+    return overlap_peer(inputs, M.make_mesh(world, ("data",), device_type="cpu"))

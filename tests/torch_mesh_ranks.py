@@ -75,8 +75,9 @@ def run_ranks(tmp_path, world: int, case: str, inputs=None, timeout: float = 120
 
 
 def run_slice_cli(work: str, world: int, argv, timeout: float = 120.0,
-                  name: str = "slice", wait: bool = True):
-    """The trainer CLI (``python -m dedloc_tpu_torch.roles.trainer``) as a
+                  name: str = "slice", wait: bool = True,
+                  module: str = "dedloc_tpu_torch.roles.trainer"):
+    """A role's CLI (``python -m <module>``, the trainer by default) as a
     slice of ``world`` CPU ranks, each its own process with torchrun's
     environment and a ``file://`` rendezvous. With ``wait`` returns each
     rank's log once all exit 0 (a hang past ``timeout`` kills them and
@@ -93,7 +94,7 @@ def run_slice_cli(work: str, world: int, argv, timeout: float = 120.0,
                  PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
         log = open(os.path.join(work, f"{name}_rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "dedloc_tpu_torch.roles.trainer", *argv],
+            [sys.executable, "-m", module, *argv],
             env=e, stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log))
     running = (work, name, procs, time.monotonic() + timeout)
     return wait_slice(running) if wait else running

@@ -174,10 +174,23 @@ Phases (any failure exits non-zero):
               at every common checkpointed step, the overlap ledger's
               hidden and exposed seconds.
 
+12. tools    the port's tensor tools on the card: ``graft_entry``
+              ``dryrun_multichip(4)`` with 4 ranks sharing the card over
+              gloo (tiny ALBERT over a (1, 2, 2) data x model x seq mesh:
+              forward, backward, accumulation of 2, LAMB, then the ZeRO-1
+              apply; pipeline dp2 x pp2, experts dp2 x ep2, the role-MoE
+              slice, and two 2-rank collaborative slices, tp2 and pp2,
+              forming a group of 2): finite loss, step 1, ZeRO step 2 on
+              every rank. Then ``tools/profile_albert.py`` ``peak`` and
+              ``pieces`` at [12, 512, 16, 64] (its JSON rows on stdout), the
+              launch counters reset before and read after: flash forward
+              and backward and add+LN forward and backward each launched.
+
 Prints a ``{"build": ...}`` line, a ``{"kernels": [...]}`` line, a
 ``{"path": ...}`` line, a ``{"longctx": ...}`` line, a ``{"collab": ...}``
 line, a ``{"downstream": ...}`` line, a ``{"swav": ...}`` line, a
-``{"moe": ...}`` line, a ``{"mesh": ...}`` line, the whole
+``{"moe": ...}`` line, a ``{"mesh": ...}`` line, a ``{"tools": ...}``
+line, the whole
 script's seconds (``{"script_s": ...}``), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -202,6 +215,9 @@ import tempfile
 import time
 
 import torch
+
+from dedloc_tpu_torch.tools.profile_albert import cuda_ms, event_ms, profile_step
+from dedloc_tpu_torch.tools.word_corpus import WORDS
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bounds below are
 # arithmetic on this run's shapes, not measurements
@@ -238,50 +254,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def cuda_ms(fn, reps: int = 25, calls: int = 10) -> float:
-    """Device time of one call: ``calls`` calls captured in a CUDA graph
-    (so host launch overhead is out of the measurement), the graph replayed
-    ``reps`` times between CUDA events after warm-up; median per call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up (Triton builds, allocator) off the graph
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs) / calls
-
-
-def event_ms(fn, reps: int = 3) -> float:
-    """Median time of one call between CUDA events (host launch overhead
-    included): for calls too large to capture in a graph."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound(n_bytes: float, **ops_ms: float) -> dict:
@@ -1390,67 +1362,18 @@ DOWN_EVAL_BATCHES = 8
 DOWN_EVAL_MLM_TOL = 1e-3
 FT_SEQ, FT_BATCH = 128, 32  # the reference fine-tunes' defaults
 FT_TRAIN, FT_EVAL = 8 * FT_BATCH, 2 * FT_BATCH  # one epoch of 8 steps
-_WORDS = re.compile(r"\w+|[^\w\s]")
-
-
-class WordVocab:
-    """Word-level ids for the smoke corpus: the 5 special tokens of
-    ``data/mlm.py`` ``SpecialTokens`` (pad, unk, [CLS], [SEP], [MASK]), then
-    the most frequent lower-cased words, within ``size`` ids; other words
-    are unk (1). The phase needs no ``tokenizers`` package."""
-
-    def __init__(self, docs, size: int):
-        import collections
-
-        counts = collections.Counter(
-            w for d in docs for w in _WORDS.findall(d.lower()))
-        self.words = [w for w, _ in counts.most_common(size - 5)]
-        self.ids = {w: 5 + i for i, w in enumerate(self.words)}
-
-    def encode(self, text: str) -> list:
-        return [self.ids.get(w, 1) for w in _WORDS.findall(text.lower())]
-
-
 def downstream_shards(seed: int, work: str) -> tuple:
     """Stdlib docstrings (``data/corpus.py``) -> word ids -> MLM+SOP
     instances at S=512 (``data/prepare.py``) -> shards (``data/disk.py``):
-    every tenth document held out. Returns (counts and paths, the
-    vocabulary, the documents)."""
-    import sysconfig
-
-    from dedloc_tpu_torch.data.corpus import harvest
-    from dedloc_tpu_torch.data.disk import write_shards
-    from dedloc_tpu_torch.data.mlm import SpecialTokens
-    from dedloc_tpu_torch.data.prepare import instance_batches
-    from dedloc_tpu_torch.data.streaming import split_sentences
+    every tenth document held out (``tools/word_corpus.py``). Returns
+    (counts and paths, the vocabulary, the documents)."""
+    from dedloc_tpu_torch.tools.word_corpus import stdlib_documents, write_word_shards
 
     t0 = time.perf_counter()
-    docs = list(harvest([sysconfig.get_paths()["stdlib"]]))
+    docs = stdlib_documents()
     harvest_s = time.perf_counter() - t0
-    tokens = SpecialTokens()  # ALBERT-large's vocab of 30,000
-    vocab = WordVocab(docs, tokens.vocab_size)
-    splits = {"train": [d for i, d in enumerate(docs) if i % 10],
-              "holdout": docs[::10]}
-    out = dict(documents=len(docs), harvest_s=harvest_s,
-               vocab_ids=5 + len(vocab.words))
-    for name, split in splits.items():
-        path = os.path.join(work, name)
-        n_tokens = [0]
-
-        def counted(batches):
-            for b in batches:
-                n_tokens[0] += int((b["input_ids"] != tokens.pad_id).sum())
-                yield b
-
-        total = write_shards(path, counted(instance_batches(
-            iter(split),
-            lambda doc: [vocab.encode(x) for x in split_sentences(doc)],
-            tokens, DOWN_SEQ, 256, seed)), examples_per_shard=1024)
-        with open(os.path.join(path, "meta.json"), "w") as f:
-            json.dump({"vocab_size": tokens.vocab_size,
-                       "max_seq_length": DOWN_SEQ, "num_instances": total}, f)
-        out[name] = dict(path=path, documents=len(split), instances=total,
-                         tokens=n_tokens[0])
+    out, vocab = write_word_shards(docs, work, DOWN_SEQ, 30000, seed)
+    out["harvest_s"] = harvest_s
     log(f"[downstream] corpus: {out['documents']} stdlib documents in "
         f"{harvest_s:.1f} s, {out['vocab_ids']} word ids; train "
         f"{out['train']['documents']} docs / {out['train']['instances']} "
@@ -1657,7 +1580,7 @@ def _ner_examples(sentences: list) -> list:
         ["O", "B-PER", "I-PER", "B-ORG", "I-ORG", "B-LOC", "I-LOC"])}
     examples = []
     for sent in sentences:
-        words = _WORDS.findall(sent)
+        words = WORDS.findall(sent)
         tags, open_kind = [], None
         for i, w in enumerate(words):
             if i and w[:1].isupper():
@@ -1673,7 +1596,7 @@ def _ner_examples(sentences: list) -> list:
     return examples
 
 
-def downstream_finetune(seed: int, vocab: WordVocab, docs: list,
+def downstream_finetune(seed: int, vocab, docs: list,
                         trainer_dir: str) -> dict:
     """``run_ner`` and ``run_ncc`` at the reference defaults (128 tokens,
     batch 32, lr 5e-5, classifier dropout 0.1) for one epoch of 8 steps,
@@ -1686,7 +1609,7 @@ def downstream_finetune(seed: int, vocab: WordVocab, docs: list,
     from dedloc_tpu_torch.ops import fused_ln as fl
 
     sentences = [s for d in docs for s in split_sentences(d)
-                 if 4 <= len(_WORDS.findall(s)) <= 60]
+                 if 4 <= len(WORDS.findall(s)) <= 60]
     need = FT_TRAIN + FT_EVAL
     if len(sentences) < need:
         fail(f"downstream: {len(sentences)} corpus sentences < {need}")
@@ -1705,7 +1628,7 @@ def downstream_finetune(seed: int, vocab: WordVocab, docs: list,
     def tokenize_text(text):
         return [2] + vocab.encode(text) + [3]
 
-    ncc_examples = [{"text": s, "label": len(_WORDS.findall(s)) % 6}
+    ncc_examples = [{"text": s, "label": len(WORDS.findall(s)) % 6}
                     for s in sentences]
     ner_examples = _ner_examples(sentences)
     tasks = {
@@ -2140,32 +2063,31 @@ def swav_cli(seed: int, work: str) -> dict:
 
 
 def swav_probe(seed: int, ckpt_dir: str) -> dict:
-    """``run_linear_probe`` on the eval-mode trunk's features of labelled
-    synthetic images, from the peer's checkpoint (a check, not a result)."""
+    """The probe tool (``tools/swav_probe.py`` ``probe_checkpoint``) on the
+    peer's checkpoint: ``run_linear_probe`` on the eval-mode trunk's
+    features of labelled synthetic images (a check, not a result)."""
     import numpy as np
 
     from dedloc_tpu_torch.data.multicrop import synthetic_labeled_images
-    from dedloc_tpu_torch.finetune import LinearProbeArguments, extract_features, run_linear_probe
-    from dedloc_tpu_torch.finetune.linear_probe import swav_trunk_apply
-    from dedloc_tpu_torch.models.swav import SwAVConfig, init_swav
-    from dedloc_tpu_torch.roles.swav import restore_checkpoint
-    from dedloc_tpu_torch.utils.checkpoint import load_latest_checkpoint
+    from dedloc_tpu_torch.finetune import LinearProbeArguments
+    from dedloc_tpu_torch.models.swav import SwAVConfig
+    from dedloc_tpu_torch.tools.swav_probe import probe_checkpoint
 
-    model, params, stats = init_swav(SwAVConfig(), seed + 7, "cuda")
-    step, tree, _meta = load_latest_checkpoint(ckpt_dir)
-    stats = restore_checkpoint(tree, params, stats)
     images, labels = synthetic_labeled_images(320, size=96, num_classes=8, seed=seed)
-    t0 = time.perf_counter()
-    feats = extract_features(swav_trunk_apply(model, params, stats), images,
-                             batch_size=64, device="cuda")
-    extract_s = time.perf_counter() - t0
+    out = probe_checkpoint(ckpt_dir, images, labels, 8, cfg=SwAVConfig(),
+                           seed=seed + 7, batch_size=64, device="cuda",
+                           probe_args=LinearProbeArguments(num_epochs=10, batch_size=64,
+                                                           learning_rate=0.1),
+                           random_trunk=False)
+    feats = out["features"]
     if not np.isfinite(feats).all() or feats.shape != (320, 2048):
         fail(f"swav probe: features {feats.shape}, finite {np.isfinite(feats).all()}")
-    result = run_linear_probe(feats[:256], labels[:256], feats[256:], labels[256:], 8,
-                              LinearProbeArguments(num_epochs=10, batch_size=64,
-                                                   learning_rate=0.1), device="cuda")
-    log(f"  probe from checkpoint step {step}: {result} (extract {extract_s:.2f} s)")
-    return dict(checkpoint_step=step, extract_s=extract_s, **result)
+    result = {k[len("trained_trunk_"):]: v for k, v in out.items()
+              if k.startswith("trained_trunk_top_")}
+    log(f"  probe from checkpoint step {out['checkpoint_step']}: {result} "
+        f"(extract {out['trained_trunk_extract_s']:.2f} s)")
+    return dict(checkpoint_step=out["checkpoint_step"],
+                extract_s=out["trained_trunk_extract_s"], **result)
 
 
 def phase_swav(seed: int) -> dict:
@@ -3628,53 +3550,57 @@ def phase_mesh(seed: int) -> dict:
                 phase_s=time.perf_counter() - t0)
 
 
-def _kind(name: str) -> str:
-    if "flash_" in name or "_ln_" in name:
-        return "port kernels"
-    if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", name, re.IGNORECASE):
-        return "matmul"
-    return "other"
+# ---------------------------------------------------------------- phase 12
+
+TOOLS_PIECES_EXPECTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                         "ln_fwd", "ln_bwd")
 
 
-def profile_step(step, trace_name: str) -> dict:
-    """Run ``step`` once under torch.profiler (device activity only) and
-    return its host wall time, the device's busy time (the union of its
-    kernel, memcpy and memset intervals), the idle share 1 - busy / wall,
-    and device time by kind and by the costliest kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_tools(seed: int) -> dict:
+    """The port's tensor tools on the card: ``graft_entry.dryrun_multichip``
+    over 4 ranks sharing this card (the step, ZeRO, pipeline, experts, the
+    role-MoE slice and two collaborative slices), then ``profile_albert``
+    ``peak`` and ``pieces`` at [12, 512, 16, 64], the launch counters reset
+    just before the pieces and read just after."""
+    import numpy as np
 
-    from dedloc_tpu_torch.ops import _build
+    from dedloc_tpu_torch import graft_entry
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.ops import fused_ln as fl
+    from dedloc_tpu_torch.tools import profile_albert as pa
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    trace = _build.BUILD_DIR / trace_name
-    prof.export_chrome_trace(str(trace))
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not events:
-        fail("the profiler saw no device activity in the traced step")
-    busy_us, end = 0.0, -math.inf
-    for start, dur in sorted((e["ts"], e["dur"]) for e in events):
-        busy_us += max(0.0, start + dur - max(start, end))
-        end = max(end, start + dur)
-    by_kind, by_name = {}, {}
-    for e in events:
-        kind = _kind(e["name"]) if e["cat"] == "kernel" else "copy/memset"
-        by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
-        ms_n = by_name.setdefault(e["name"][:100], [0.0, 0])
-        ms_n[0] += e["dur"] / 1e3
-        ms_n[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    prof_out = dict(
-        wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-        idle_share=1.0 - busy_us / 1e3 / wall_ms, device_ops=len(events),
-        by_kind_ms=by_kind, top=[[n, ms, c] for n, (ms, c) in top],
-    )
-    log(f"  traced step: {json.dumps(prof_out)}")
-    return prof_out
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(4)
+    dry_s = time.perf_counter() - t0
+    if not np.isfinite(dry["loss"]) or dry["counts"] != [(1, 2)] * 4:
+        fail(f"tools: dryrun loss {dry['loss']}, (step, ZeRO step) per rank "
+             f"{dry['counts']} (want finite and (1, 2) on each of 4 ranks)")
+    slices = dry["collaborative_slices"]
+    log(f"[tools] dryrun_multichip(4) on {dry['mesh']}: loss {dry['loss']:.6f}, "
+        f"ZeRO step {dry['zero_step']}, pipeline {dry['pipeline_loss']:.6f}, "
+        f"MoE {dry['moe_loss']:.6f}, role-MoE step {dry['role_moe']['step']}, "
+        f"slice groups {slices} ({dry_s:.1f} s)")
+    for w in fa.WRAPPERS + fl.WRAPPERS:
+        w.launches = 0
+    t1 = time.perf_counter()
+    prof = pa.Profiler(torch.device("cuda"))
+    peak = pa.run_peak(prof)
+    pa.run_pieces(prof)
+    launches = {w.__name__: w.launches for w in fa.WRAPPERS + fl.WRAPPERS}
+    pieces_s = time.perf_counter() - t1
+    missing = [n for n in TOOLS_PIECES_EXPECTED if not launches.get(n)]
+    if missing:
+        fail(f"tools: profile pieces launched no {missing} ({launches})")
+    log(f"[tools] profile pieces: {len(prof.rows)} rows, launches {launches} "
+        f"({pieces_s:.1f} s)")
+    return dict(dryrun=dict(mesh=dry["mesh"], loss=dry["loss"],
+                            metrics=dry["metrics"], zero_step=dry["zero_step"],
+                            counts=dry["counts"], pipeline_loss=dry["pipeline_loss"],
+                            moe_loss=dry["moe_loss"], role_moe=dry["role_moe"],
+                            collaborative_slices=slices, wall_s=dry_s),
+                profile=dict(achievable_peak_tflops=peak, rows=prof.rows,
+                             launches=launches, wall_s=pieces_s),
+                phase_s=time.perf_counter() - t0)
 
 
 def main(argv=None) -> int:
@@ -3705,6 +3631,7 @@ def main(argv=None) -> int:
     swav = phase_swav(args.seed)
     moe = phase_moe(args.seed)
     mesh = phase_mesh(args.seed)
+    tools = phase_tools(args.seed)
 
     rows = []
     for k in kernels:
@@ -3740,6 +3667,9 @@ def main(argv=None) -> int:
                 cell: [counts[name] for counts in run["launches_per_step_per_rank"]]
                 for cell, run in mesh["runs"].items()}
             # the two overlapping dp2 slices: rank 0's launches, and per boundary
+            # the tools phase's profile pieces (graph warm-up and capture
+            # calls; replays launch through the graph, not the wrapper)
+            rows[-1]["launches_tools_pieces"] = tools["profile"]["launches"][name]
             rows[-1]["launches_overlap_slices"] = {
                 peer: dict(total=rep["kernel_launches"][name],
                            per_boundary=rep["kernel_launches"][name] / rep["boundaries"])
@@ -3759,6 +3689,7 @@ def main(argv=None) -> int:
     print(json.dumps({"swav": swav}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"script_s": time.perf_counter() - script_t0}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -59,13 +59,19 @@ def run_aux(
     args: CollaborationArguments,
     poll_interval: float = 0.5,
     max_iterations: int = 0,
+    max_rounds: int = 0,
 ) -> int:
     """Returns the number of averaging rounds joined (for tests).
 
     The gradient-shape template SELF-BOOTSTRAPS from a live state provider
     (run_aux.py:243-263 capability: the aux learns the model from the
     collaboration, not from the caller); the local model config is only the
-    fallback while nobody shares state yet."""
+    fallback while nobody shares state yet.
+
+    The loop runs until stopped, or (each when nonzero) for
+    ``max_iterations`` polls or until it has joined ``max_rounds`` rounds.
+    A poll that finds no round ready returns at once, so ``max_iterations``
+    polls last about ``max_iterations * poll_interval`` seconds."""
     # gated runs: aux peers need envelopes too (leaders reject unsigned
     # joins; gated joiners reject unsigned leader replies)
     authorizer, authority_public_key = build_authorizer(args)
@@ -140,6 +146,8 @@ def run_aux(
                 logger.info(f"joined averaging round (total {rounds})")
             iterations += 1
             if max_iterations and iterations >= max_iterations:
+                break
+            if max_rounds and rounds >= max_rounds:
                 break
             time.sleep(poll_interval)
     finally:

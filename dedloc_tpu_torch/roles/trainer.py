@@ -290,6 +290,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     # the running loss stays ON DEVICE (a lazy sum); the host reads one
     # scalar per GLOBAL step, where the value is published
     loss_sum_dev = torch.zeros([], device=device)
+    mlm_sum_dev = torch.zeros([], device=device)
     mini_steps = 0
     boundary = 0
     last_saved_step = opt.local_step
@@ -326,6 +327,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                             state.params, grad_acc, n_acc, batch
                         )
                     loss_sum_dev = loss_sum_dev + metrics["loss"]
+                    mlm_sum_dev = mlm_sum_dev + metrics["mlm_loss"]
                     mini_steps += 1
                 if srec is not None:
                     # recording only: wait for the kernels so fwd_bwd
@@ -347,7 +349,9 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                 )
             if stepped:
                 loss_sum = float(loss_sum_dev)  # the one sync per global step
+                mlm_sum = float(mlm_sum_dev)
                 loss_sum_dev = torch.zeros([], device=device)
+                mlm_sum_dev = torch.zeros([], device=device)
                 opt.report_loss(loss_sum / max(mini_steps, 1))
                 sps = float(opt.performance_ema.samples_per_second)
                 publish_metrics(
@@ -383,11 +387,11 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                     f"{loss_sum / max(mini_steps, 1):.4f}"
                 )
                 if train_log is not None:
-                    train_log.write(json.dumps(_log_record(
+                    train_log.write(json.dumps(dict(_log_record(
                         opt, perf, loss_sum / max(mini_steps, 1), sps,
                         samples, time.perf_counter() - wall_start, device,
                         boundary + 1,
-                    )) + "\n")
+                    ), mlm_loss=mlm_sum / max(mini_steps, 1))) + "\n")
                 if (
                     tr.log_perf_steps
                     and opt.local_step % tr.log_perf_steps == 0

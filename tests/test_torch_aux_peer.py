@@ -55,8 +55,12 @@ def test_aux_role_joins_a_round_with_a_trainer(tmp_path):
 
     def run():
         try:
+            # 600 polls 0.1 s apart, at least 60 s (the JAX package's aux
+            # test's deadline): the aux polls until the trainer's first
+            # round, however late a loaded machine makes it, and stops once
+            # it has joined one
             result["rounds"] = aux.run_aux(args, poll_interval=0.1,
-                                           max_iterations=10)
+                                           max_iterations=600, max_rounds=1)
         finally:
             done.set()
 

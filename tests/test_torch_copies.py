@@ -223,6 +223,28 @@ def test_extended_copy_starts_with_its_source(rel):
         assert name in extra
 
 
+# functions the port's tools copy verbatim from the repository's JAX tools:
+# (the tool, the port's tool, the functions)
+FUNCTION_COPIES = (
+    ("tools/swav_probe.py", "dedloc_tpu_torch/tools/swav_probe.py",
+     ("texture_image", "class_params", "generate", "_labeled_split")),
+)
+
+
+def _functions(path, names):
+    text = (REPO / path).read_text()
+    tree = ast.parse(text)
+    found = {n.name: ast.get_source_segment(text, n) for n in tree.body
+             if isinstance(n, ast.FunctionDef) and n.name in names}
+    assert sorted(found) == sorted(names), path
+    return found
+
+
+@pytest.mark.parametrize("source,copy,names", FUNCTION_COPIES)
+def test_tool_functions_are_verbatim_copies(source, copy, names):
+    assert _functions(copy, names) == _functions(source, names)
+
+
 def _port_imports():
     for path in sorted((REPO / "dedloc_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text())

@@ -45,6 +45,32 @@ def test_package_imports_no_jax_and_nothing_of_dedloc_tpu():
     assert banned == "[]", banned
 
 
+# the graft entry points and the tools (slice 11): each imports alone,
+# without JAX or the JAX package, and starts nothing when imported
+_TOOLS = ("dedloc_tpu_torch.graft_entry", "dedloc_tpu_torch.tools.profile_albert",
+          "dedloc_tpu_torch.tools.word_corpus", "dedloc_tpu_torch.tools.swav_probe",
+          "dedloc_tpu_torch.tools.ring_scaling", "dedloc_tpu_torch.tools.sustained",
+          "dedloc_tpu_torch.tools.ranks")
+_TOOL_PROBE = r"""
+import importlib, sys, threading
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "chex", "triton")
+          or m == "dedloc_tpu" or m.startswith("dedloc_tpu.")]
+print(banned, threading.active_count())
+"""
+
+
+def test_tools_and_graft_entry_import_alone_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _TOOL_PROBE, *_TOOLS], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[] 1"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")

@@ -96,14 +96,17 @@ def test_two_slice_peers(tmp_path):
     (accumulation) = 8 samples, the two reach the target of 32 together in
     two boundaries and average in groups of 2. (At a target of 16 a slice
     that started first reached it alone, before its partner's progress
-    record was visible, and stepped solo.)"""
+    record was visible, and stepped solo; the JAX package's peers do the
+    same, ROADMAP §C2.) Each slice runs 16 boundaries: on a loaded machine
+    one slice can start several boundaries after the other, and 8 were
+    spent before it arrived."""
     root_args = parse_config(CollaborationArguments, _flags(tmp_path))
     root, _ = build_dht(root_args)
     try:
         addr = root.get_visible_address()
         mesh = ["--training.mesh_devices", "2", "--training.mesh_model_devices", "2",
                 "--dht.initial_peers", addr, "--optimizer.target_batch_size", "32",
-                "--training.max_local_steps", "8",
+                "--training.max_local_steps", "16",
                 "--averager.averaging_expiration", "15"]
         for i in (0, 1):
             (tmp_path / f"s{i}").mkdir()

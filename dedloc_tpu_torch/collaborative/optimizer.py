@@ -104,6 +104,7 @@ def _state_views(state: TrainState, tx) -> Dict[str, torch.Tensor]:
     return tx.state_views(state.params, state.opt_state)
 
 
+@steps.in_region("mean_clip")
 def _fused_mean_clip(grad_acc: Dict[str, torch.Tensor], n, cap: float):
     """The accumulator mean plus the contribution clip: ``grad_acc / n``
     per leaf, one global-norm reduce (a fixed-order sum of per-leaf dots,

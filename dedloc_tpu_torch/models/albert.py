@@ -78,6 +78,7 @@ from dedloc_tpu_torch.parallel.ring_attention import (
     blockwise_attention,
     ring_attention,
 )
+from dedloc_tpu_torch.telemetry.steps import in_region, region
 from dedloc_tpu_torch.utils.device import divide
 
 
@@ -379,6 +380,7 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(size))
         self.bias = nn.Parameter(torch.zeros(size))
 
+    @in_region("norm")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         mean = x.mean(-1, keepdim=True)
@@ -396,6 +398,7 @@ class AddLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(cfg.hidden_size))
         self.bias = nn.Parameter(torch.zeros(cfg.hidden_size))
 
+    @in_region("norm")
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.fused_ln:
@@ -418,6 +421,7 @@ class AlbertSelfAttention(nn.Module):
         self.dense = Dense(h, h, cfg.dtype)
         self.layernorm = AddLayerNorm(cfg)
 
+    @in_region("attention")
     def forward(self, hidden, kv_bias,
                 generator: Optional[torch.Generator] = None):
         """``generator``: this block application's dropout generator on
@@ -495,6 +499,11 @@ class AlbertLayer(nn.Module):
         redraws the masks of its forward."""
         generator = _site_generator(seed, hidden.device)
         hidden = self.attention(hidden, kv_bias, generator)
+        return self._ffn(hidden, generator)
+
+    @in_region("ffn")
+    def _ffn(self, hidden, generator):
+        """The FFN (dense, or the experts) and its add+LN: (hidden, aux)."""
         aux = None
         if self.cfg.moe_experts > 0:
             # no named outputs: the fused_ln* policies recompute the branch
@@ -689,17 +698,19 @@ class AlbertModel(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         # under sequence parallelism this rank holds positions from
         # rank x S/sp on
-        positions = torch.arange(s, device=input_ids.device) + seq_offset(cfg, s)
-        emb = (self._word_embedding(input_ids)
-               + self.position_embeddings(positions)[None]
-               + self.token_type_embeddings(token_type_ids))
-        emb = self.embeddings_layernorm(emb)
-        emb = dropout(emb, cfg.hidden_dropout_prob,
-                      _site_generator(_draw_seed(key), emb.device))
-        hidden = self.embedding_projection(emb)  # factorized: E -> hidden
+        with region("embed"):
+            positions = torch.arange(s, device=input_ids.device) + seq_offset(cfg, s)
+            emb = (self._word_embedding(input_ids)
+                   + self.position_embeddings(positions)[None]
+                   + self.token_type_embeddings(token_type_ids))
+            emb = self.embeddings_layernorm(emb)
+            emb = dropout(emb, cfg.hidden_dropout_prob,
+                          _site_generator(_draw_seed(key), emb.device))
+            hidden = self.embedding_projection(emb)  # factorized: E -> hidden
         kv_bias = torch.where(attention_mask > 0, 0.0, -1e9).to(torch.float32)
         hidden = self.encoder(hidden, kv_bias, key, losses)
-        pooled = torch.tanh(self.pooler(hidden[:, 0]))
+        with region("head"):
+            pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled
 
     def _word_embedding(self, ids: torch.Tensor) -> torch.Tensor:
@@ -737,9 +748,14 @@ class AlbertForPreTraining(nn.Module):
         """``mlm_positions`` [B, P]: the MLM head runs only on those gathered
         positions (logits [B, P, vocab]); None covers every position.
         ``losses``: a dict that receives ``moe_aux`` with experts."""
-        cfg = self.cfg
         hidden, pooled = self.albert(input_ids, attention_mask, token_type_ids,
                                      deterministic, generator, losses)
+        return self._heads(hidden, pooled, mlm_positions)
+
+    @in_region("head")
+    def _heads(self, hidden, pooled, mlm_positions):
+        """The tied MLM decoder and the SOP classifier: fp32 logits."""
+        cfg = self.cfg
         if mlm_positions is not None:
             # under sequence parallelism the positions outside this rank's
             # shard read a clamped row (the loss masks them)
@@ -855,6 +871,7 @@ def classification_loss(logits, labels, ignore_index: int = -100):
     return loss, {"loss": loss, "accuracy": acc, "n_labels": mask.sum()}
 
 
+@in_region("loss")
 def albert_pretraining_loss(mlm_logits, sop_logits, mlm_labels, sop_labels,
                             ignore_index: int = -100):
     """MLM + SOP cross-entropy, masked-mean over labelled positions."""
@@ -868,6 +885,7 @@ def albert_pretraining_loss(mlm_logits, sop_logits, mlm_labels, sop_labels,
                   "mlm_acc": mlm_acc}
 
 
+@in_region("loss")
 def albert_pretraining_loss_gathered(mlm_logits, sop_logits, mlm_label_ids,
                                      mlm_weights, sop_labels):
     """Masked-position variant: logits at the gathered positions, weights

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dedloc_tpu_torch.parallel.mesh import copy_to, psum
+from dedloc_tpu_torch.telemetry.steps import in_region
 from dedloc_tpu_torch.utils.device import divide
 
 Stats = Dict[str, torch.Tensor]
@@ -111,6 +112,7 @@ class BatchNorm(nn.Module):
         self.stats_name = ""
         self.mesh = mesh
 
+    @in_region("norm")
     def forward(self, x: torch.Tensor, stats: Stats, train: bool) -> torch.Tensor:
         """Normalise ``x`` ([N, C, ...]) in fp32; in training mode, replace
         this layer's running statistics in ``stats``."""

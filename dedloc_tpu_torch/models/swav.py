@@ -51,6 +51,7 @@ from dedloc_tpu_torch.models.resnet import (
 )
 from dedloc_tpu_torch.parallel.mesh import all_gather, all_reduce, pmax, psum
 from dedloc_tpu_torch.parallel.train_step import TrainState, reduce_grads
+from dedloc_tpu_torch.telemetry.steps import in_region, region
 from dedloc_tpu_torch.utils.device import divide
 
 
@@ -99,6 +100,7 @@ class SwAVPrototypesHead(nn.Module):
         for i, k in enumerate(cfg.num_prototypes):
             self.add_module(f"prototypes{i}", nn.Linear(dims[-1], k, bias=False))
 
+    @in_region("head")
     def forward(self, features: torch.Tensor, stats: Stats, train: bool):
         cfg = self.cfg
         x = features.float()
@@ -152,6 +154,7 @@ def _sliced(mesh) -> bool:
     return mesh is not None and mesh.group("data") is not None
 
 
+@in_region("sinkhorn")
 @torch.no_grad()
 def sinkhorn_knopp(scores: torch.Tensor, num_iters: int = 3,
                    epsilon: float = 0.05, hard: bool = False,
@@ -202,6 +205,7 @@ def queue_rows(q: int, mesh) -> slice:
     return slice(r * q // n, (r + 1) * q // n)
 
 
+@in_region("loss")
 def swav_loss(scores: Sequence[torch.Tensor], cfg: SwAVConfig,
               queue_scores: Optional[torch.Tensor] = None,
               use_queue: bool = False,
@@ -273,6 +277,7 @@ class SwAVQueue:
         emb = torch.rand(shape, generator=generator) * (2 * stdv) - stdv
         return cls(embeddings=emb.to(device) if device is not None else emb)
 
+    @in_region("queue")
     def update(self, embeddings: torch.Tensor, cfg: SwAVConfig,
                mesh=None) -> "SwAVQueue":
         """Shift in this step's assignment-crop embeddings
@@ -287,6 +292,7 @@ class SwAVQueue:
             fresh = all_gather(fresh, mesh, "data", dim=1)
         return SwAVQueue(torch.cat([fresh, self.embeddings], 1)[:, :q].contiguous())
 
+    @in_region("queue")
     @torch.no_grad()
     def scores(self, params: Dict[str, torch.Tensor], cfg: SwAVConfig) -> torch.Tensor:
         """Queue scores against the CURRENT prototypes:
@@ -348,12 +354,15 @@ def _check_mesh(model: SwAVModel, mesh) -> None:
 def _loss_and_grads(model: SwAVModel, cfg: SwAVConfig, params, batch_stats,
                     queue: Optional[SwAVQueue], crops, use_queue: bool,
                     mesh=None):
-    queue_scores = (queue.scores(params, cfg)
-                    if use_queue and queue is not None else None)
-    emb, scores, new_bs = functional_call(model, params, (crops, batch_stats, True))
-    loss = swav_loss(scores, cfg, queue_scores, use_queue=use_queue, mesh=mesh)
+    with region("fwd"):
+        queue_scores = (queue.scores(params, cfg)
+                        if use_queue and queue is not None else None)
+        emb, scores, new_bs = functional_call(model, params,
+                                              (crops, batch_stats, True))
+        loss = swav_loss(scores, cfg, queue_scores, use_queue=use_queue, mesh=mesh)
     names = list(params)
-    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    with region("bwd"):
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.detach(), dict(zip(names, grads)), new_bs, emb.detach()
 
 
@@ -379,9 +388,9 @@ def make_swav_accumulate_step(model: SwAVModel, cfg: SwAVConfig, mesh=None):
              use_queue: bool):
         loss, grads, new_bs, emb = _loss_and_grads(
             model, cfg, params, batch_stats, queue, crops, use_queue, mesh)
-        grads = freeze_prototypes_grads(grads, global_step,
-                                        cfg.freeze_prototypes_steps)
-        with torch.no_grad():
+        with torch.no_grad(), region("accumulate"):
+            grads = freeze_prototypes_grads(grads, global_step,
+                                            cfg.freeze_prototypes_steps)
             for n, g in grads.items():
                 grad_acc[n].add_(g.float())
         new_queue = queue.update(emb, cfg, mesh) if queue is not None else None
@@ -468,6 +477,7 @@ def local_crops(crops: Sequence[np.ndarray], batch: int, mesh) -> List[np.ndarra
     return out
 
 
+@in_region("h2d")
 def crop_tensors(crops: Sequence[np.ndarray], device, batch: Optional[int] = None,
                  mesh=None) -> List[torch.Tensor]:
     """The pipeline's NHWC float32 crop groups as tensors on ``device``;

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from dedloc_tpu_torch.ops import _build
+from dedloc_tpu_torch.telemetry.steps import region
 from dedloc_tpu_torch.utils.device import on_card
 
 NEG_INF = -1e30
@@ -271,13 +272,15 @@ def _flash_setup(ctx, inputs, output):
 
 
 def _flash_backward(ctx, dout, _dlse):
+    # a remat block recomputes its forward here, in its own regions
     q, k, v, bias, out, lse = ctx.saved_tensors
-    dout = dout.contiguous()
-    delta = softmax_delta(out, dout)
-    dk, dv = flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
-    dq = flash_bwd_dq(q, k, v, bias, lse, dout, delta)
-    # the mask bias is a non-differentiable input: zero gradient
-    dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+    with region("attention"):
+        dout = dout.contiguous()
+        delta = softmax_delta(out, dout)
+        dk, dv = flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
+        dq = flash_bwd_dq(q, k, v, bias, lse, dout, delta)
+        # the mask bias is a non-differentiable input: zero gradient
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
     return dq, dk, dv, dbias
 
 

@@ -44,6 +44,7 @@ from typing import Tuple
 import torch
 
 from dedloc_tpu_torch.ops import _build
+from dedloc_tpu_torch.telemetry.steps import region
 from dedloc_tpu_torch.utils.device import on_card
 
 # ------------------------------------------------------------ plain versions
@@ -284,10 +285,12 @@ def _ln_setup(ctx, inputs, output):
 
 
 def _ln_backward(ctx, dy, _dxhat, _drstd):
+    # a remat block recomputes its forward here, in its own regions
     xhat, rstd, gamma = ctx.saved_tensors
-    da, dgamma, dbeta = ln_bwd(xhat, rstd, gamma, dy.contiguous())
-    # the residual add fans the same cotangent to both inputs
-    return da, da.to(ctx.r_dtype), dgamma, dbeta, None
+    with region("norm"):
+        da, dgamma, dbeta = ln_bwd(xhat, rstd, gamma, dy.contiguous())
+        # the residual add fans the same cotangent to both inputs
+        return da, da.to(ctx.r_dtype), dgamma, dbeta, None
 
 
 _ln_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup)

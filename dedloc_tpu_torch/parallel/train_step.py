@@ -44,6 +44,7 @@ from dedloc_tpu_torch.parallel.mesh import (
     all_reduce,
     local_block,
 )
+from dedloc_tpu_torch.telemetry.steps import in_region, region
 from dedloc_tpu_torch.utils.device import divide
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -63,14 +64,17 @@ class TrainState:
         return cls(step=0, params=params, opt_state=tx.init(params))
 
 
+@in_region("accumulate")
 def zeros_like_grads(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
 
 
 def _grads(loss_fn: LossFn, params, batch, rng):
-    loss, metrics = loss_fn(params, batch, rng)
+    with region("fwd"):
+        loss, metrics = loss_fn(params, batch, rng)
     names = list(params)
-    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    with region("bwd"):
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
     metrics = {k: v.detach() for k, v in metrics.items()}
     return dict(zip(names, grads)), metrics
 
@@ -89,7 +93,7 @@ def make_accumulate_step(loss_fn: LossFn) -> Callable:
 
     def step(params, grad_acc, n_acc: int, batch, rng: Optional[torch.Generator] = None):
         grads, metrics = _grads(loss_fn, params, batch, rng)
-        with torch.no_grad():
+        with torch.no_grad(), region("accumulate"):
             for n, g in grads.items():
                 grad_acc[n].add_(g.float())
         return grad_acc, n_acc + 1, metrics
@@ -206,6 +210,7 @@ def make_apply_step(tx, mesh=None, opt_state_sharding=None,
     parameters are updated in place (``p + u`` in the parameter dtype).
     On a mesh: ``mesh_update`` on this rank's blocks."""
     if _sharded(mesh):
+        @in_region("opt_apply")
         @torch.no_grad()
         def mesh_apply(state: TrainState, grads) -> TrainState:
             new_params, new_opt = mesh_update(
@@ -218,6 +223,7 @@ def make_apply_step(tx, mesh=None, opt_state_sharding=None,
 
         return mesh_apply
 
+    @in_region("opt_apply")
     def apply(state: TrainState, grads) -> TrainState:
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         with torch.no_grad():
@@ -229,6 +235,7 @@ def make_apply_step(tx, mesh=None, opt_state_sharding=None,
     return apply
 
 
+@in_region("accumulate")
 @torch.no_grad()
 def add_micro_grads(grad_acc: Dict[str, torch.Tensor], grads,
                     grad_accum_steps: int) -> None:
@@ -328,6 +335,7 @@ def make_guarded_apply_step(tx, mesh=None, opt_state_sharding=None,
     slice (every rank's new blocks finite), the same bool on every rank."""
     sharded = _sharded(mesh)
 
+    @in_region("opt_apply")
     @torch.no_grad()
     def apply(state: TrainState, grads):
         device = next(iter(state.params.values())).device
@@ -450,6 +458,7 @@ def make_flat_apply_step(flat_tx, spec, post_apply=None,
         raise TypeError(f"unsupported flat optimizer {type(flat_tx)!r}")
     layouts: Dict[Tuple[str, ...], FlatLayout] = {}
 
+    @in_region("opt_apply")
     @torch.no_grad()
     def apply(state: TrainState, grads):
         key = tuple(state.params)

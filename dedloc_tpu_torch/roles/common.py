@@ -29,6 +29,7 @@ from dedloc_tpu_torch.models.albert import (
 from dedloc_tpu_torch.dht.dht import DHT
 from dedloc_tpu_torch.optim.lamb import Lamb
 from dedloc_tpu_torch.optim.schedules import linear_warmup_linear_decay
+from dedloc_tpu_torch.telemetry.steps import in_region
 from dedloc_tpu_torch.utils.device import DeviceLike, resolve_device
 from dedloc_tpu_torch.utils.logging import get_logger
 
@@ -398,6 +399,7 @@ def loss_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
             "mlm_labels", "sop_labels")
 
 
+@in_region("h2d")
 def drop_collator_keys(
     batch: Dict[str, np.ndarray], device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:

@@ -89,3 +89,9 @@ def configure(args, peer: str = "") -> Optional[Telemetry]:
             link_top_k=getattr(args, "link_top_k", 8),
         )
     )
+
+
+# the port's device-trace regions (``steps.region``), beside the copy above
+from dedloc_tpu_torch.telemetry.steps import region  # noqa: E402
+
+__all__.append("region")

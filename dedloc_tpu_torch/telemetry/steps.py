@@ -46,8 +46,8 @@ Design rules, mirroring ``registry.py``:
 - **Zero overhead when disabled.** ``StepRecorder.step`` resolves the
   telemetry registry once; with telemetry off it yields ``None`` and sets
   no context, and the module-level ``phase()`` helper used by code that
-  does not hold the recorder (the collaborative optimizer) is a single
-  contextvar load returning a shared no-op.
+  does not hold the recorder (the collaborative optimizer) is a contextvar
+  load and one profiler check returning a shared no-op.
 - **FakeClock-compatible.** All timing uses the registry's monotonic
   clock (``registry.monotonic_clock``), which advances with the FakeClock
   offset — fault-injection tests produce deterministic phase durations.
@@ -57,13 +57,25 @@ Design rules, mirroring ``registry.py``:
   residual, dominant phase, online MFU); each phase also feeds the
   ``step.phase.<name>`` histogram so metrics-bus snapshots carry
   ``step.phase.<name>.mean`` for the coordinator's swarm-health fold.
+
+**Device-trace regions.** ``region(name)`` names a stretch of host code
+``dedloc.<name>`` in a ``torch.profiler`` trace, the same trace that holds
+the device's kernels, so each kernel and each wait of the device can be
+charged to the code that launched it. The port's training step is covered
+by them (docs/observability.md "Device-trace regions"); a phase of the
+recorder enters the region of its own name as well. With no profiler
+recording, a region is one check and the shared no-op.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
+import functools
 from collections import deque
 from contextlib import contextmanager
-from typing import Any, Deque, Dict, Iterator, Optional
+from typing import Any, Callable, Deque, Dict, Iterator, Optional
+
+import torch
 
 from dedloc_tpu_torch.telemetry import registry
 
@@ -86,8 +98,6 @@ def chip_peak_tflops() -> float:
     """Peak bf16 TFLOP/s of CUDA device 0, or 0.0 without a known card
     (MFU gauge omitted)."""
     try:
-        import torch
-
         if not torch.cuda.is_available():
             return 0.0
         kind = torch.cuda.get_device_name(0).lower()
@@ -104,8 +114,6 @@ def block_on_device(block_on: Any) -> None:
     list or tuple of them) has finished: record a CUDA event on the current
     stream after it and synchronise on that event. CPU tensors are already
     computed when the call returns, so they need no wait."""
-    import torch
-
     stack, on_card = [block_on], False
     while stack and not on_card:
         item = stack.pop()
@@ -159,13 +167,14 @@ class _StepContext:
         """Time a region into phase ``name``. ``block_on``: tensors whose
         work is waited for before the clock stops (``block_on_device``:
         kernel launches return before the card has run them)."""
-        start = self._clock()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                block_on_device(block_on)
-            self.add(name, self._clock() - start)
+        with region(name):
+            start = self._clock()
+            try:
+                yield
+            finally:
+                if block_on is not None:
+                    block_on_device(block_on)
+                self.add(name, self._clock() - start)
 
 
 # the live step context (per-thread / per-task): instrumented code that does
@@ -180,16 +189,47 @@ def current() -> Optional[_StepContext]:
     return _CURRENT.get()
 
 
-@contextmanager
-def _null() -> Iterator[None]:
-    yield
+# what a region is while no profiler records: one shared, reusable no-op
+_NOOP = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+# a RecordFunction guard entered from Python without dispatching an
+# operator: it shows in the trace as a host operation, and a dispatch mode
+# (the selective-checkpoint policy of a remat block) never sees it
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+def region(name: str):
+    """A context naming the host code it encloses ``dedloc.<name>`` in a
+    ``torch.profiler`` trace while one records, where the device operations
+    launched inside it can be charged to it; otherwise ``_NOOP``, after one
+    check. Names stay within 24 characters, so a label cut at 64 keeps
+    them whole."""
+    if _profiler_enabled():
+        return _RecordFunctionFast("dedloc." + name)
+    return _NOOP
+
+
+def in_region(name: str) -> Callable:
+    """A decorator: every call of the function runs inside
+    ``region(name)``."""
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with region(name):
+                return fn(*args, **kwargs)
+
+        return run
+
+    return wrap
 
 
 def phase(name: str, block_on: Any = None):
     """Module-level phase timer: times into the innermost live step record,
-    or no-ops (one contextvar load) when no step is being recorded."""
+    or, when no step is being recorded, is the phase's ``region`` (one
+    contextvar load and one check while no profiler records)."""
     ctx = _CURRENT.get()
-    return ctx.phase(name, block_on) if ctx is not None else _null()
+    return ctx.phase(name, block_on) if ctx is not None else region(name)
 
 
 def add(name: str, seconds: float) -> None:

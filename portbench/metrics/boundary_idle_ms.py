@@ -1,0 +1,7 @@
+"""Device idle ms a step charged to the boundary's regions, ``mean_clip``
+and ``opt_apply`` (``_regions.py``)."""
+from portbench.metrics import _regions
+
+
+def read(run):
+    return _regions.phase(run, _regions.BOUNDARY, "idle_ms")

@@ -29,6 +29,14 @@ Phases (any failure exits non-zero):
               PyTorch call computing the same function (timed only, never
               used by the port; for add+LN the nearest calls: the fp32 add
               then native_layer_norm, and native_layer_norm_backward).
+              The batch-norm kernels at the SwAV cell's shapes (stem and
+              stage-0 conv3x3 at 224, stage-0 expand + residual at 224,
+              stage-3 expand + residual at 96, the head): each wrapper
+              against its plain twin from the same inputs, its CUDA-graph
+              time beside bytes / 3.35 TB/s and beside the native call
+              nearest to it (torch.batch_norm_stats, F.batch_norm,
+              torch.batch_norm_backward_reduce and _elemt, timed only);
+              the launches are the swav phase's.
 4. reference  the tiny config on the card (kernels) against the same
               weights and batch on the CPU (plain versions).
 5. path       first the divisions the reference makes, card against CPU
@@ -96,8 +104,10 @@ Phases (any failure exits non-zero):
               evaluating to their epoch's loss, no port kernel launched; ms
               per step and peak memory. Both heads on a tiny config, card
               against CPU.
-9. swav       the SwAV peer, which launches none of the port's kernels
-              (their counters must stay 0): the tiny config (bf16 trunk)
+9. swav       the SwAV peer, whose batch norms run the batch-norm
+              kernels (each wrapper 107 launches a step: 53 trunk norms a
+              crop group and the head's) and which launches no flash or
+              add+LN kernel (their counters must stay 0): the tiny config (bf16 trunk)
               card against CPU (embeddings, loss, gradients) and a
               [32 + 3840, 3000] fp32 sinkhorn card against CPU; the
               full-width fused local step (ResNet-50, head 2048 -> 2048 ->
@@ -697,8 +707,174 @@ def phase_kernels(seed: int) -> list:
                 fp32=12 * n * w / FP32_FLOPS * 1e3),
         **common,
     ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    results += batch_norm_rows(gen)
     torch.cuda.synchronize()
     return results
+
+
+# the SwAV cell's batch norms (128 images: 2 x 224^2 + 6 x 96^2 crops):
+# (tag, input shape, residual, output dtype); every one ReLU-ended, the
+# head's input fp32, the trunk's bf16 (its convolutions' output)
+BN_CASES = (
+    ("stem 224", (256, 64, 112, 112), False, torch.float32),
+    ("stage0 conv3x3 224", (256, 64, 56, 56), False, torch.bfloat16),
+    ("stage0 expand 224", (256, 256, 56, 56), True, torch.float32),
+    ("stage3 expand 96", (768, 2048, 3, 3), True, torch.float32),
+    ("head", (1024, 2048), False, torch.float32),
+)
+BN_SRC = "dedloc_tpu_torch/ops/batch_norm.py"
+BN_FP32_TOL = 1e-5  # of each output's max |ref|: fp32 sums in other orders
+BN_BF16_TOL = 2 ** -7  # one bf16 step (2^-8) of max |ref|, and as much again
+# share of elements whose ReLU mask may differ between kernel and twin: a
+# pre-activation within an fp32 rounding of 0 (the kernel fuses a multiply
+# and add the twin rounds twice)
+BN_MASK_SHARE = 1e-5
+
+
+def _bn_case(tag, shape, res, out_dtype, gen) -> list:
+    """The four batch-norm wrappers against their plain twins from the same
+    inputs (each fed the kernel's own statistics and mask, so a row checks
+    one kernel), then each timed by CUDA-graph replay beside its bytes."""
+    from dedloc_tpu_torch.ops import batch_norm as bn
+
+    c = shape[1]
+    x_dtype = torch.float32 if len(shape) == 2 else torch.bfloat16
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(x_dtype)
+    if len(shape) == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    x2 = x.permute(0, 2, 3, 1).reshape(-1, c) if len(shape) == 4 else x
+    m = x2.shape[0]
+    vec = lambda base, scale: base + scale * torch.randn(c, generator=gen, device="cuda")
+    w, b, ra_m, ra_v = vec(1.0, 0.1), vec(0.0, 0.1), vec(0.0, 0.1), vec(1.0, 0.1).abs()
+    r2 = torch.randn((m, c), generator=gen, device="cuda") if res else None
+    dy = torch.randn((m, c), generator=gen, device="cuda").to(out_dtype)
+    eps = 1e-5
+    log(f"[kernels] batch norm {tag}: [{m}, {c}] {x_dtype} -> {out_dtype}, "
+        f"ReLU{' + residual' if res else ''}")
+    tol = lambda dtype: BN_BF16_TOL if dtype == torch.bfloat16 else BN_FP32_TOL
+    close = lambda name, got, want, dtype: check_close(
+        f"{tag} {name}", got, want, tol(dtype) * float(want.float().abs().max()), 0.0)
+
+    st, nm, nv = bn.bn_stats(x2, ra_m, ra_v, 0.9)
+    st_p, nm_p, nv_p = bn.bn_stats_plain(x2, ra_m, ra_v, 0.9)
+    stats_err = max(close("stats mean", st[:c], st_p[:c], torch.float32),
+                    close("stats var", st[c:2 * c], st_p[c:2 * c], torch.float32),
+                    close("running mean", nm, nm_p, torch.float32),
+                    close("running var", nv, nv_p, torch.float32))
+    if float(st[2 * c]) != m:
+        fail(f"batch norm {tag}: row count {float(st[2 * c])} != {m}")
+    mean, var, count = st[:c], st[c:2 * c], st[2 * c:]
+    y, mask = bn.bn_apply(x2, mean, var, w, b, eps, True, r2, out_dtype, with_mask=res)
+    y_p, mask_p = bn.bn_apply_plain(x2, mean, var, w, b, eps, True, r2, out_dtype,
+                                    with_mask=res)
+    apply_err = close("apply y", y, y_p, out_dtype)
+    flips = 0
+    if res:
+        flips = int((mask != mask_p).sum())
+        if flips > BN_MASK_SHARE * mask.numel():
+            fail(f"batch norm {tag}: {flips} ReLU mask bytes differ")
+    d = bn.bn_grad_sums(x2, dy, mask, mean, var, w, b, eps, True)
+    d_p = bn.bn_grad_sums_plain(x2, dy, mask, mean, var, w, b, eps, True)
+    sums_err = max(close("dbias", d[:c], d_p[:c], torch.float32),
+                   close("dweight", d[c:], d_p[c:], torch.float32))
+    dx, dr = bn.bn_dx(x2, dy, mask, mean, var, count, w, b, d, eps, True,
+                      None if r2 is None else r2.dtype)
+    dx_p, dr_p = bn.bn_dx_plain(x2, dy, mask, mean, var, count, w, b, d, eps, True,
+                                None if r2 is None else r2.dtype)
+    if not res:
+        # the ReLU recomputed from x: leave out the elements whose
+        # pre-activation lies within an fp32 rounding of 0
+        pre = (x2.float() - mean) * (torch.rsqrt(var.clamp_min(0) + eps) * w) + b
+        edge = pre.abs() <= 1e-6 * float(pre.abs().max())
+        flips = int(edge.sum())
+        if flips > BN_MASK_SHARE * edge.numel():
+            fail(f"batch norm {tag}: {flips} pre-activations at 0")
+        dx, dx_p = dx.masked_fill(edge, 0), dx_p.masked_fill(edge, 0)
+    dx_err = close("dx", dx, dx_p, x_dtype)
+    if res:
+        dx_err = max(dx_err, close("dresidual", dr, dr_p, torch.float32))
+    del y_p, mask_p, dx_p, dr_p
+    gc.collect()
+
+    xb, ob = x2.element_size(), y.element_size()
+    n = m * c
+    mask_b = n if res else 0
+    bytes_ = dict(
+        bn_stats=n * xb,
+        bn_apply=n * (xb + ob) + (n * 4 if res else 0) + mask_b,
+        bn_grad_sums=n * (xb + ob) + mask_b,
+        bn_dx=n * (xb + ob + xb) + mask_b + (n * 4 if res else 0),
+    )
+    calls = dict(
+        bn_stats=(lambda: bn.bn_stats(x2, ra_m, ra_v, 0.9),
+                  lambda: bn.bn_stats_plain(x2, ra_m, ra_v, 0.9), stats_err),
+        bn_apply=(lambda: bn.bn_apply(x2, mean, var, w, b, eps, True, r2, out_dtype, res),
+                  lambda: bn.bn_apply_plain(x2, mean, var, w, b, eps, True, r2,
+                                            out_dtype, res), apply_err),
+        bn_grad_sums=(lambda: bn.bn_grad_sums(x2, dy, mask, mean, var, w, b, eps, True),
+                      lambda: bn.bn_grad_sums_plain(x2, dy, mask, mean, var, w, b, eps,
+                                                    True), sums_err),
+        bn_dx=(lambda: bn.bn_dx(x2, dy, mask, mean, var, count, w, b, d, eps, True,
+                                None if r2 is None else r2.dtype),
+               lambda: bn.bn_dx_plain(x2, dy, mask, mean, var, count, w, b, d, eps, True,
+                                      None if r2 is None else r2.dtype), dx_err),
+    )
+    # the nearest PyTorch calls, timed only and never called by the port,
+    # on the same input and gradient (x's dtype and layout; no ReLU and no
+    # residual): F.batch_norm in training mode (statistics and normalise in
+    # one call) beside bn_stats + bn_apply, and the native kernels of
+    # SyncBatchNorm for the statistics and the two backward passes
+    xs = x if len(shape) == 4 else x2
+    dys = dy.to(x_dtype)
+    if len(shape) == 4:
+        n_, _, h_, w_ = shape
+        dys = dys.view(n_, h_, w_, c).permute(0, 3, 1, 2)
+    lib_mean, lib_invstd = torch.batch_norm_stats(xs, eps)
+    lib_sums = torch.batch_norm_backward_reduce(dys, xs, lib_mean, lib_invstd, w,
+                                                True, True, True)
+    lib_count = torch.full((1,), m, dtype=torch.int32, device="cuda")
+    library = dict(
+        bn_stats=(lambda: torch.batch_norm_stats(xs, eps),
+                  "torch.batch_norm_stats (mean, invstd; no running statistics)"),
+        bn_apply=(lambda: torch.nn.functional.batch_norm(
+            xs, None, None, w, b, training=True, eps=eps),
+                  "F.batch_norm training (one call: statistics + normalise, "
+                  "no epilogue), beside bn_stats + bn_apply"),
+        bn_grad_sums=(lambda: torch.batch_norm_backward_reduce(
+            dys, xs, lib_mean, lib_invstd, w, True, True, True),
+                      "torch.batch_norm_backward_reduce (no ReLU mask)"),
+        bn_dx=(lambda: torch.batch_norm_backward_elemt(
+            dys, xs, lib_mean, lib_invstd, w, lib_sums[0], lib_sums[1], lib_count),
+               "torch.batch_norm_backward_elemt (no ReLU mask, no residual "
+               "gradient)"),
+    )
+    rows = []
+    for name, (kernel, plain, err) in calls.items():
+        rows.append(dict(
+            name=name, replaces="none (flax nn.BatchNorm, left to XLA)",
+            route="triton", source=BN_SRC, path="SwAV", case=tag,
+            shape=[m, c], x_dtype=str(x_dtype), out_dtype=str(out_dtype),
+            residual=res, err=(err, None), mask_edge_elements=flips,
+            tol="atol 1e-5 (fp32) or 2^-7 (bf16) x max |ref|",
+            ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=10, calls=3),
+            plain_timing="CUDA graph",
+            library_ms=cuda_ms(library[name][0], reps=10, calls=3),
+            library=library[name][1], **bound(bytes_[name])))
+        log(f"  {tag} {name}: {rows[-1]['ms']:.4f} ms (bound {rows[-1]['bound_ms']:.4f}, "
+            f"plain {rows[-1]['plain_ms']:.4f}, library {rows[-1]['library_ms']:.4f})")
+    return rows
+
+
+def batch_norm_rows(gen) -> list:
+    """The batch-norm kernels at the SwAV cell's shapes (``BN_CASES``)."""
+    rows = []
+    for case in BN_CASES:
+        rows += _bn_case(*case, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1784,6 +1960,9 @@ SWAV_CLI_BOUNDARIES = 4
 # features 2e-2 relative of max |ref|, loss 1e-2 relative, the whole
 # gradient within 0.2 relative error and cosine >= 0.98
 SWAV_FEAT_RTOL, SWAV_LOSS_RTOL = 2e-2, 1e-2
+# batch norms a SwAV step runs: 53 in the trunk per crop group (2), the
+# head's one; each launches every batch-norm wrapper once a step
+SWAV_BATCH_NORMS = 53 * 2 + 1
 SWAV_GRAD_REL, SWAV_GRAD_COS = 0.2, 0.98
 SWAV_SINKHORN_ATOL = 1e-5
 SWAV_FLAT_RTOL = 1e-6  # flat LARS vs per-leaf, of each leaf's max |ref|
@@ -1873,6 +2052,7 @@ def swav_local(seed: int) -> dict:
         SwAVConfig, make_prototype_post_apply, make_swav_accumulate_step,
         make_swav_train_step,
     )
+    from dedloc_tpu_torch.ops import batch_norm as bnops
     from dedloc_tpu_torch.optim.flat import FlatLars
     from dedloc_tpu_torch.optim.lars import Lars
     from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
@@ -1898,15 +2078,23 @@ def swav_local(seed: int) -> dict:
 
     hook = bn.register_forward_pre_hook(keep_input)
     var_before = state.batch_stats["head.proj_bn0.var"].double().clone()
-    losses, step_ms = [], []
+    losses, step_ms, per_step = [], [], []
+    for w in bnops.WRAPPERS:
+        w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i, use_queue in enumerate([False] * SWAV_LOCAL_STEPS[0] + [True] * SWAV_LOCAL_STEPS[1]):
+        before = {w.__name__: w.launches for w in bnops.WRAPPERS}
         t0 = time.perf_counter()
         state, metrics = step(state, crops, use_queue)
         loss = float(metrics["loss"])  # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
+        per_step.append({w.__name__: w.launches - before[w.__name__]
+                         for w in bnops.WRAPPERS})
+        if set(per_step[-1].values()) != {SWAV_BATCH_NORMS}:
+            fail(f"swav local step {i}: batch-norm launches {per_step[-1]}, "
+                 f"expected {SWAV_BATCH_NORMS} each")
         if not math.isfinite(loss):
             fail(f"swav local step {i}: loss {loss}")
         norms = state.params["head.prototypes0.weight"].detach().double().norm(dim=1)
@@ -1925,8 +2113,9 @@ def swav_local(seed: int) -> dict:
             log(f"  BN running var vs biased estimate: {var_err:.3e} relative "
                 f"(the unbiased one would be {unbiased_gap:.2e} off over {x.shape[0]} rows)")
     peak = torch.cuda.max_memory_allocated()
+    launches = {w.__name__: w.launches for w in bnops.WRAPPERS}
     log(f"  local steps: losses {losses}, ms {[round(t, 2) for t in step_ms]}, "
-        f"peak {peak:,} bytes")
+        f"peak {peak:,} bytes, batch-norm launches per step {per_step[-1]}")
     timed = step_ms[1:]  # the first pays cuDNN's set-up
     med_ms = statistics.median(timed)
     trace = profile_step(lambda: float(step(state, crops, True)[1]["loss"]),
@@ -1986,7 +2175,7 @@ def swav_local(seed: int) -> dict:
                 images_per_s=SWAV_BATCH / med_ms * 1e3, peak_bytes=peak,
                 bn_running_var_rel_err=var_err, flat_vs_leaf_rel=flat_worst,
                 flat_apply_ms=flat_ms, leaf_apply_ms=leaf_ms, trace=trace,
-                bench_batch=big)
+                bench_batch=big, launches=launches, launches_per_step=per_step[-1])
 
 
 def swav_cli(seed: int, work: str) -> dict:
@@ -2092,8 +2281,8 @@ def swav_probe(seed: int, ckpt_dir: str) -> dict:
 
 def phase_swav(seed: int) -> dict:
     """The SwAV peer on the card: tiny card vs CPU, the full-width local
-    step, the CLI peer and the linear probe. It launches none of the
-    port's kernels."""
+    step, the CLI peer and the linear probe. Its batch norms run the
+    port's batch-norm kernels; it launches no flash or add+LN kernel."""
     from dedloc_tpu_torch.ops import _build
     from dedloc_tpu_torch.ops import flash_attention as fa
     from dedloc_tpu_torch.ops import fused_ln as fl
@@ -2114,7 +2303,7 @@ def phase_swav(seed: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     launches = _port_launches()
     if any(launches.values()):
-        fail(f"swav: the phase launched port kernels {launches}")
+        fail(f"swav: the phase launched flash or add+LN kernels {launches}")
     return dict(tiny=tiny, local=local, cli=cli, probe=probe, launches=launches,
                 phase_s=time.perf_counter() - t0)
 
@@ -3638,7 +3827,7 @@ def main(argv=None) -> int:
         name = k.pop("name")
         max_abs_err, samples_with_keys = k.pop("err")
         # launches: the count from the run of the path the row was measured at
-        run = longctx if k["path"] == f"S={LONG_SEQ}" else path
+        run = {f"S={LONG_SEQ}": longctx, "SwAV": swav["local"]}.get(k["path"], path)
         rows.append(dict(
             name=name, route=k.pop("route"), source=k.pop("source"),
             replaces=k.pop("replaces"), launches=run["launches"][name],

@@ -9,8 +9,8 @@ the JAX kernel HWIO), and the numerics follow flax:
 - the input is the pipeline's NHWC float32 array, taken as an NCHW view of
   channels-last memory (no copy): cuDNN's fast layout;
 - each convolution casts its input and its fp32 weight to ``cfg.dtype``
-  (bf16) with explicit casts; batch norm runs in fp32 on the upcast output,
-  and ReLU, the residual add and the pooled features are fp32;
+  (bf16) with explicit casts; batch norm runs in fp32 on the convolution's
+  output, and ReLU, the residual add and the pooled features are fp32;
 - batch norm is flax's: the batch variance is ``E[x^2] - E[x]^2`` clipped
   at 0, the running statistics move as ``0.9 * ra + 0.1 * stat`` with the
   *biased* variance (``F.batch_norm`` would store the unbiased one), and
@@ -18,6 +18,14 @@ the JAX kernel HWIO), and the numerics follow flax:
 - padding is explicit as in flax: the stem is 7x7 stride 2 pad 3, max pool
   3/2 pad 1 with -inf padding, and a block's stride sits on its 3x3 conv
   and its 1x1 ``proj``.
+
+Each batch norm is one fused call (``ops/batch_norm.py``: Triton kernels on
+the card, their plain versions on the CPU) that takes the ReLU after it and
+a block's residual add as its epilogue, and writes its output in the dtype
+its consumer takes: ``cfg.dtype`` for ``reduce`` and ``conv3x3``, whose one
+consumer is a convolution that casts to it (the same rounding, made once);
+fp32 for the stem (max pool feeds two convolutions), ``proj``, ``expand``
+(the residual stream) and the head.
 
 The running statistics (``mean``, ``var`` per BatchNorm, keyed
 ``<module path>.mean``/``.var``) are not module buffers: they are a plain
@@ -29,22 +37,22 @@ On a slice mesh (``parallel/mesh.py``) each rank holds its rows of the
 batch and a batch norm's statistics are the slice's, as GSPMD makes them
 for the JAX module under a sharded batch: one all-reduce per layer of the
 per-channel sums, sums of squares and row count over the ``data`` axis
-(flax's one ``pmean`` of ``[mean, mean2]``), whose backward all-reduces
-the cotangent too (``copy_to(psum(.))``): each rank's rows reach the
-statistics, so every rank's ``x`` gradient takes the other ranks' terms.
-Every rank then holds bitwise-equal running statistics.
+(flax's one ``pmean`` of ``[mean, mean2]``); the backward all-reduces the
+per-channel sums its statistics' cotangent needs, so every rank's ``x``
+gradient takes the other ranks' terms. Every rank then holds bitwise-equal
+running statistics.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dedloc_tpu_torch.parallel.mesh import copy_to, psum
+from dedloc_tpu_torch.ops.batch_norm import batch_norm
 from dedloc_tpu_torch.telemetry.steps import in_region
 from dedloc_tpu_torch.utils.device import divide
 
@@ -83,24 +91,12 @@ def _mean(x: torch.Tensor, dims) -> torch.Tensor:
     return divide(x.sum(dims), count)
 
 
-def _slice_moments(x: torch.Tensor, dims, mesh):
-    """(mean, mean of squares) per channel over the slice's rows: this
-    rank's sums and row count all-reduced over ``data`` in one collective
-    whose backward all-reduces the cotangent."""
-    count = math.prod(x.shape[d] for d in dims)
-    local = torch.cat([x.sum(dims), (x * x).sum(dims),
-                       x.new_full((1,), float(count))])
-    total = copy_to(psum(local, mesh, "data"), mesh, "data")
-    c = x.shape[1]
-    n = total[2 * c].detach()
-    return total[:c] / n, total[c:2 * c] / n
-
-
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over every axis but the channels (axis 1),
-    with fp32 statistics. ``stats_name`` is the module path its running
-    statistics are keyed by (set by the root model). With a ``mesh`` the
-    statistics are the slice's (module docstring)."""
+    with fp32 statistics, and the epilogue that follows it. ``stats_name``
+    is the module path its running statistics are keyed by (set by the
+    root model). With a ``mesh`` the statistics are the slice's (module
+    docstring)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
                  mesh=None):
@@ -113,26 +109,23 @@ class BatchNorm(nn.Module):
         self.mesh = mesh
 
     @in_region("norm")
-    def forward(self, x: torch.Tensor, stats: Stats, train: bool) -> torch.Tensor:
-        """Normalise ``x`` ([N, C, ...]) in fp32; in training mode, replace
-        this layer's running statistics in ``stats``."""
-        x = x.float()
+    def forward(self, x: torch.Tensor, stats: Stats, train: bool, relu: bool = False,
+                residual: Optional[torch.Tensor] = None,
+                out_dtype=torch.float32) -> torch.Tensor:
+        """``[ReLU]([residual +] normalised x)`` in ``out_dtype`` for ``x``
+        [N, C] or channels-last [N, C, H, W]; in training mode, replace this
+        layer's running statistics in ``stats``."""
         key = self.stats_name
+        mesh = self.mesh
+        if mesh is not None and mesh.group("data") is None:
+            mesh = None  # no slice: the statistics are this rank's
+        y, mean, var = batch_norm(
+            x, self.weight, self.bias, stats[key + ".mean"], stats[key + ".var"],
+            train=train, momentum=self.momentum, eps=self.eps, relu=relu,
+            residual=residual, out_dtype=out_dtype, mesh=mesh)
         if train:
-            dims = [d for d in range(x.dim()) if d != 1]
-            if self.mesh is not None and self.mesh.group("data") is not None:
-                mean, mean2 = _slice_moments(x, dims, self.mesh)
-            else:
-                mean, mean2 = _mean(x, dims), _mean(x * x, dims)
-            var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            m = self.momentum
-            stats[key + ".mean"] = m * stats[key + ".mean"] + (1 - m) * mean.detach()
-            stats[key + ".var"] = m * stats[key + ".var"] + (1 - m) * var.detach()
-        else:
-            mean, var = stats[key + ".mean"], stats[key + ".var"]
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            stats[key + ".mean"], stats[key + ".var"] = mean, var
+        return y
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, dtype, stride: int,
@@ -156,6 +149,9 @@ def conv(x: torch.Tensor, weight: torch.Tensor, dtype, stride: int,
 
 
 class ConvBN(nn.Module):
+    """A convolution and its batch norm, ReLU last where ``use_relu`` (after
+    the residual add where one is given)."""
+
     def __init__(self, cfg: ResNetConfig, in_features: int, features: int,
                  kernel: int = 3, stride: int = 1, use_relu: bool = True,
                  mesh=None):
@@ -165,23 +161,23 @@ class ConvBN(nn.Module):
         self.conv = nn.Conv2d(in_features, features, kernel, bias=False)
         self.bn = BatchNorm(features, cfg.bn_momentum, cfg.bn_eps, mesh)
 
-    def forward(self, x, stats: Stats, train: bool):
+    def forward(self, x, stats: Stats, train: bool, residual=None,
+                out_dtype=torch.float32):
         y = conv(x, self.conv.weight, self.cfg.dtype, self.stride, self.padding)
-        y = self.bn(y, stats, train)
-        return F.relu(y) if self.use_relu else y
+        return self.bn(y, stats, train, relu=self.use_relu, residual=residual,
+                       out_dtype=out_dtype)
 
 
 class Bottleneck(nn.Module):
-    """1x1 reduce -> 3x3 -> 1x1 expand (x4), residual add; a 1x1 ``proj``
-    where the residual's shape changes."""
+    """1x1 reduce -> 3x3 -> 1x1 expand (x4), residual add, ReLU; a 1x1
+    ``proj`` where the residual's shape changes."""
 
     def __init__(self, cfg: ResNetConfig, in_features: int, features: int,
                  stride: int = 1, mesh=None):
         super().__init__()
         self.reduce = ConvBN(cfg, in_features, features, 1, mesh=mesh)
         self.conv3x3 = ConvBN(cfg, features, features, 3, stride, mesh=mesh)
-        self.expand = ConvBN(cfg, features, features * 4, 1, use_relu=False,
-                             mesh=mesh)
+        self.expand = ConvBN(cfg, features, features * 4, 1, mesh=mesh)
         self.proj = (
             ConvBN(cfg, in_features, features * 4, 1, stride, use_relu=False,
                    mesh=mesh)
@@ -189,11 +185,12 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x, stats: Stats, train: bool):
-        y = self.reduce(x, stats, train)
-        y = self.conv3x3(y, stats, train)
-        y = self.expand(y, stats, train)
+        # reduce and conv3x3 feed a convolution alone: written in its dtype
+        dtype = self.reduce.cfg.dtype
+        y = self.reduce(x, stats, train, out_dtype=dtype)
+        y = self.conv3x3(y, stats, train, out_dtype=dtype)
         residual = x if self.proj is None else self.proj(x, stats, train)
-        return F.relu(residual + y)
+        return self.expand(y, stats, train, residual=residual)  # ReLU(residual + y)
 
 
 def name_batch_norms(root: nn.Module) -> None:
@@ -242,7 +239,7 @@ class ResNet(nn.Module):
         flax's mutable ``batch_stats`` do)."""
         x = images.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
         x = conv(x, self.stem_conv.weight, self.cfg.dtype, 2, 3)
-        x = F.relu(self.stem_bn(x, stats, train))
+        x = self.stem_bn(x, stats, train, relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.children():
             if isinstance(block, Bottleneck):

@@ -111,8 +111,9 @@ class SwAVPrototypesHead(nn.Module):
             if i == n_layers - 1:
                 break  # skip_last_bn
             if cfg.use_bn_in_head:
-                x = getattr(self, f"proj_bn{i}")(x, stats, train)
-            x = F.relu(x)
+                x = getattr(self, f"proj_bn{i}")(x, stats, train, relu=True)
+            else:
+                x = F.relu(x)
         # L2 normalize the embeddings before clustering
         norm = torch.sqrt((x * x).sum(-1, keepdim=True))
         x = x / torch.clamp_min(norm, 1e-12)

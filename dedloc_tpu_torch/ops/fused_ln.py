@@ -37,7 +37,6 @@ launches. The forward with residuals is an operator the dispatcher sees
 """
 from __future__ import annotations
 
-import functools
 import os
 from typing import Tuple
 
@@ -45,7 +44,7 @@ import torch
 
 from dedloc_tpu_torch.ops import _build
 from dedloc_tpu_torch.telemetry.steps import region
-from dedloc_tpu_torch.utils.device import on_card
+from dedloc_tpu_torch.utils.device import on_card, sm_count
 
 # ------------------------------------------------------------ plain versions
 
@@ -185,11 +184,6 @@ def _check_vec(name: str, t: torch.Tensor, h: int) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _tile(h: int):
     """(BLOCK, ROWS, num_warps) for rows of width h: a power-of-two BLOCK
     covering the row, and up to 4 rows per program while the tile stays
@@ -239,7 +233,7 @@ def ln_bwd(xhat, rstd, gamma, dy):
     block, rows, warps = _tile(h)
     # 2 programs per SM, each a run of rows (a multiple of the tile's) and
     # one partial row of dgamma/dbeta
-    n_programs = 2 * _sm_count(dy.device)
+    n_programs = 2 * sm_count(dy.device)
     rows_per_prog = triton.cdiv(triton.cdiv(n, n_programs), rows) * rows
     parts = triton.cdiv(n, rows_per_prog)
     da = torch.empty_like(dy)

@@ -1,6 +1,7 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -39,3 +40,9 @@ def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     host path and to the JAX package (x / 3 != x * (1 / 3) in fp32). The
     divisor is filled on the device, so nothing waits for the stream."""
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: what a kernel's grid fills."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

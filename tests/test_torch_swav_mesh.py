@@ -2,8 +2,9 @@
 CPU: the sinkhorn over 2 and 4 ranks (with and without queue rows, soft
 and hard) against JAX's ``sinkhorn_knopp`` on the whole matrix, a batch
 norm over 2 ranks against flax's one-device layer (the ``x`` gradient
-needs the statistics' cotangent all-reduced, which a pass-through
-``psum`` misses), and the guarded LARS apply with the prototype
+needs the statistics' cotangent all-reduced, which a backward passing its
+per-channel sums through misses), the fused residual variant over 2 ranks
+against one rank, and the guarded LARS apply with the prototype
 ``post_apply`` on 2 ranks against the one-device apply, NaN rollback
 included. The accumulate step over 2 and 4 ranks:
 ``tests/test_torch_swav_mesh_step.py``; the slice peer's CLI:
@@ -63,7 +64,8 @@ def _bn_inputs():
     return dict(x=(rng.standard_normal((B, c, 4, 4)) * 2 + 0.5).astype(np.float32),
                 w=rng.standard_normal((B, c, 4, 4)).astype(np.float32),
                 weight=(1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
-                bias=(0.1 * rng.standard_normal(c)).astype(np.float32))
+                bias=(0.1 * rng.standard_normal(c)).astype(np.float32),
+                r=rng.standard_normal((B, c, 4, 4)).astype(np.float32))
 
 
 def _flax_bn(inputs):
@@ -115,6 +117,31 @@ def test_batch_norm_x_gradient_needs_the_cotangent_all_reduced(bn_run):
     want, outs = bn_run
     got = np.concatenate([o["gx_passthrough"] for o in outs])
     assert np.abs(got - want["gx"]).max() > 100 * BN_ATOL
+
+
+@pytest.mark.parametrize("what", ["y", "dx", "dresidual", "dweight", "dbias", "mean",
+                                  "var"])
+def test_fused_batch_norm_over_the_slice_equals_one_rank(bn_run, what):
+    """The fused residual variant (bf16 x, ReLU(residual + .)) on 2 ranks,
+    its statistics' sums and its backward's per-channel sums all-reduced,
+    against one rank over the same rows: the rows' outputs and gradients,
+    the parameters' gradients summed over the ranks, the running
+    statistics on every rank. The slice only reorders fp32 sums; dx is
+    bf16 (one step of 2^-8 where a value straddles a rounding boundary)."""
+    _, outs = bn_run
+    want = outs[0]["fused_one_rank"][what]
+    parts = [o["fused"][what] for o in outs]
+    if what in ("y", "dx", "dresidual"):  # this rank's rows
+        got = np.concatenate(parts)
+    elif what in ("dweight", "dbias"):  # each rank's part
+        got = sum(parts)
+    else:
+        got = parts[0]
+        for p in parts[1:]:
+            np.testing.assert_array_equal(p, got)
+    tol = 2 ** -7 if what == "dx" else BN_ATOL
+    np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max(), rtol=0,
+                               err_msg=what)
 
 
 def _lars_grads():

@@ -304,8 +304,9 @@ def swav_sinkhorn(rank, world, inputs):
     return out
 
 
-def _bn_run(x, w, weight, bias, mesh):
+def _bn_run(x, w, weight, bias, mesh, passthrough=False):
     from dedloc_tpu_torch.models.resnet import BatchNorm
+    from dedloc_tpu_torch.ops import batch_norm
 
     bn = BatchNorm(x.shape[1], 0.9, 1e-5, mesh)
     with torch.no_grad():
@@ -313,32 +314,54 @@ def _bn_run(x, w, weight, bias, mesh):
         bn.bias.copy_(_t(bias))
     bn.stats_name = "bn"
     stats = {"bn.mean": torch.zeros(x.shape[1]), "bn.var": torch.ones(x.shape[1])}
-    x = _t(x).clone().requires_grad_()
+    x = _t(x).contiguous(memory_format=torch.channels_last).requires_grad_()
     y = bn(x, stats, True)
-    gx, gw, gb = torch.autograd.grad((y * _t(w)).sum(), [x, bn.weight, bn.bias])
+    all_reduce = batch_norm.all_reduce
+    if passthrough:  # the backward's reduction passes its sums through
+        batch_norm.all_reduce = lambda t, _mesh, _axes: t.clone()
+    try:
+        gx, gw, gb = torch.autograd.grad((y * _t(w)).sum(), [x, bn.weight, bn.bias])
+    finally:
+        batch_norm.all_reduce = all_reduce
     return dict(y=y.detach().numpy(), gx=gx.numpy(), gw=gw.numpy(), gb=gb.numpy(),
                 mean=stats["bn.mean"].numpy(), var=stats["bn.var"].numpy(),
                 stats_digest=_digest(torch.cat([stats["bn.mean"], stats["bn.var"]])))
 
 
+def _fused_bn_run(inputs, rows, mesh):
+    """The fused batch norm as ``expand`` runs it: bf16 channels-last x,
+    ReLU(residual + .) in fp32, on ``rows`` of the batch; its output,
+    running statistics and the gradients of sum(y * w)."""
+    from dedloc_tpu_torch.ops.batch_norm import batch_norm
+
+    cl = lambda a: _t(a[rows]).contiguous(memory_format=torch.channels_last)
+    x = cl(inputs["x"]).to(torch.bfloat16).requires_grad_()
+    r = cl(inputs["r"]).requires_grad_()
+    weight = _t(inputs["weight"]).requires_grad_()
+    bias = _t(inputs["bias"]).requires_grad_()
+    c = weight.shape[0]
+    y, mean, var = batch_norm(x, weight, bias, torch.zeros(c), torch.ones(c), train=True,
+                              momentum=0.9, eps=1e-5, relu=True, residual=r, mesh=mesh)
+    grads = torch.autograd.grad((y * cl(inputs["w"])).sum(), [x, r, weight, bias])
+    dx, dr, dw, db = (g.float().numpy() for g in grads)
+    return dict(y=y.detach().numpy(), dx=dx, dresidual=dr, dweight=dw, dbias=db,
+                mean=mean.numpy(), var=var.numpy())
+
+
 def swav_bn(rank, world, inputs):
     """A batch norm over the slice's rows (this rank's B/N of them): its
     output, running statistics and the gradients of a loss summed over
-    the ranks; then the same with the statistics' reduction passing the
-    gradient through (a plain ``psum``)."""
-    from dedloc_tpu_torch.models import resnet
-
+    the ranks; then the same with the backward's reduction of the
+    statistics' cotangent passing its sums through; then the fused
+    residual variant on the slice and on one rank over all the rows."""
     mesh = M.make_mesh(world, ("data",), device_type="cpu")
     b = inputs["x"].shape[0] // world
     rows = slice(rank * b, (rank + 1) * b)
     args = (inputs["x"][rows], inputs["w"][rows], inputs["weight"], inputs["bias"])
     out = _bn_run(*args, mesh)
-    copy_to = resnet.copy_to
-    resnet.copy_to = lambda x, _mesh, _axes: x
-    try:
-        out["gx_passthrough"] = _bn_run(*args, mesh)["gx"]
-    finally:
-        resnet.copy_to = copy_to
+    out["gx_passthrough"] = _bn_run(*args, mesh, passthrough=True)["gx"]
+    out["fused"] = _fused_bn_run(inputs, rows, mesh)
+    out["fused_one_rank"] = _fused_bn_run(inputs, slice(None), None)
     return out
 
 

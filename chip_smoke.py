@@ -21,7 +21,12 @@ Phases (any failure exits non-zero):
               ragged cases at the tile edges (S=100, 200 and 16,320 at
               D=64, S=200 at D=128), every other supported head dim at
               S=130, and peaked attention at S=16,384 (q x 4: scores of
-              standard deviation 4). The flash tolerance scales with each
+              standard deviation 4); the causal two-width kernels at the
+              Moonlight cell's [2, 8192, 16], q/k 192 and v 128 wide (their
+              plain versions 4 heads at a time), and one micro-step of a
+              3-layer Moonlight-16B-A3B model at that shape with the launch
+              counters reset just before (one launch of each kernel a
+              layer). The flash tolerance scales with each
               sample's own max |ref|; the mean signed error toward |ref|
               shows a bias that the tolerance would pass. Device time per
               call (CUDA-graph replays between CUDA events, median) of the
@@ -244,6 +249,7 @@ EXP_PER_S = 0.0  # set by phase_device
 FLASH_SHAPE = (12, 512, 16, 64)  # B, S, H, D of the S=512 path
 LONG_SEQ = 16384
 LONG_SHAPE = (2, LONG_SEQ, 16, 64)  # the long-context path's length
+MLA_SHAPE = (2, 8192, 16, 192, 128)  # B, S, H, D_QK, D_V of the Moonlight cell
 # |flash - blockwise| allowed on the long-context losses before the first
 # update. The two differ only in attention's rounding (p rounded to bf16
 # against different running maxima). The MLM term averages 2,461 positions
@@ -366,10 +372,11 @@ def phase_build() -> tuple:
     # any ptxas warning (a serialised wgmma pipeline says so there)
     name, spill_bytes, regs = "?", 0, {}
     for line in _build.build_log("flash_attention").splitlines():
-        entry = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_kernel)ILi(\d+)E",
+        entry = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_kernel)I((?:L[ib]\d+E)+)",
                           line)
-        if entry:
-            name = f"{entry.group(1)}<{entry.group(2)}>"
+        if entry:  # <D>, or <D_QK,D_V,causal> for the two-width kernels
+            args = ",".join(re.findall(r"L[ib](\d+)E", entry.group(2)))
+            name = f"{entry.group(1)}<{args}>"
         elif "spill stores" in line:
             spill_bytes = int(re.search(r"(\d+) bytes spill stores", line).group(1))
             log(f"  {name}: {line.strip()}")
@@ -424,32 +431,36 @@ def by_heads(fn, group: int, *args):
     return join(results)
 
 
-def _check_flash(tag, q, k, v, dout, bias, group=None) -> dict:
+def _check_flash(tag, q, k, v, dout, bias, group=None, causal=False) -> dict:
     """Every flash kernel against its plain version (run ``group`` heads at
     a time when given); per kernel, the max abs err over the batch and, per
-    output, the samples-with-keys statistics."""
+    output, the samples-with-keys statistics. ``causal``: the causal
+    kernels (v may then be narrower than q and k)."""
+    import functools
+
     from dedloc_tpu_torch.ops import flash_attention as fa
 
-    plain = (lambda fn, *a: by_heads(fn, group, *a)) if group else (
-        lambda fn, *a: fn(*a))
+    run = lambda fn: functools.partial(fn, causal=causal)
+    plain = (lambda fn, *a: by_heads(run(fn), group, *a)) if group else (
+        lambda fn, *a: run(fn)(*a))
     real = bias.amax(dim=1) == 0  # samples with at least one key
-    out, lse = fa.flash_fwd(q, k, v, bias)
+    out, lse = fa.flash_fwd(q, k, v, bias, causal)
     out_p, lse_p = plain(fa.flash_fwd_plain, q, k, v, bias)
     o = check_per_sample(f"{tag} flash_fwd out", out, out_p, real)
     check_close(f"{tag} flash_fwd lse", lse, lse_p, 1e-3, 1e-5)
     del out_p, lse_p
     # the backward kernels on identical inputs (the kernel forward's lse)
     delta = fa.softmax_delta(out, dout)
-    dk, dv = fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta, causal)
     dk_p, dv_p = plain(fa.flash_bwd_dkdv_plain, q, k, v, bias, lse, dout, delta)
-    dq = fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta)
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta, causal)
     dq_p = plain(fa.flash_bwd_dq_plain, q, k, v, bias, lse, dout, delta)
     gk = check_per_sample(f"{tag} flash_bwd dk", dk, dk_p, real)
     gv = check_per_sample(f"{tag} flash_bwd dv", dv, dv_p, real)
     gq = check_per_sample(f"{tag} flash_bwd dq", dq, dq_p, real)
     # the autograd operator end to end, with a fixed random cotangent
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, bias),
+    grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, bias, causal=causal),
                                 (qr, kr, vr), dout)
     for name, g, ref in zip(("dq", "dk", "dv"), grads, (dq_p, dk_p, dv_p)):
         check_per_sample(f"{tag} autograd {name}", g, ref, real)
@@ -462,15 +473,15 @@ def _check_flash(tag, q, k, v, dout, bias, group=None) -> dict:
     }
 
 
-def _check_repeat(tag, q, k, v, bias, lse, dout, delta) -> bool:
+def _check_repeat(tag, q, k, v, bias, lse, dout, delta, causal=False) -> bool:
     """Two launches of each flash kernel on the same inputs give
     bitwise-equal outputs (every output row has one owner, no atomics)."""
     from dedloc_tpu_torch.ops import flash_attention as fa
 
     def launch():
-        return (*fa.flash_fwd(q, k, v, bias),
-                *fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta),
-                fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta))
+        return (*fa.flash_fwd(q, k, v, bias, causal),
+                *fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta, causal),
+                fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta, causal))
 
     first, second = launch(), launch()
     names = ("flash_fwd out", "flash_fwd lse", "flash_bwd dk", "flash_bwd dv",
@@ -582,6 +593,101 @@ def _flash_rows(path: str, shape, lengths, gen, replaces: dict,
     return result
 
 
+def _mla_rows(gen, seed: int) -> list:
+    """The causal two-width flash kernels (latent attention) at the
+    Moonlight cell's shape: each against its plain version 4 heads at a
+    time, two launches bitwise equal, then timed beside its bound, in which
+    only the (query, key) pairs at or below the diagonal are charged. Then
+    one micro-step of a 3-layer Moonlight-16B-A3B model (1 dense + 2 expert
+    layers, 8 experts held, 20,480 ids) at the cell's [2, 8192], the launch
+    counters reset just before it: one launch of each kernel a layer (the
+    recompute keeps flash's out and lse). One row per kernel."""
+    from dedloc_tpu_torch.ops import flash_attention as fa
+    from dedloc_tpu_torch.parallel.train_step import make_accumulate_step, zeros_like_grads
+    from dedloc_tpu_torch.roles.common import build_loss_fn, build_model
+
+    b, s, h, dqk, dv = MLA_SHAPE
+    log(f"[kernels] causal flash attention at [{b}, {s}, {h}], q/k {dqk} and v {dv} "
+        "wide, bf16")
+    q, k = (torch.randn((b, s, h, dqk), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    v, dout = (torch.randn((b, s, h, dv), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(2))
+    bias = torch.zeros((b, s), device="cuda")
+    errs = _check_flash(f"MLA S={s}", q, k, v, dout, bias, group=4, causal=True)
+    out, lse = fa.flash_fwd(q, k, v, bias, True)
+    delta = fa.softmax_delta(out, dout)
+    bitwise = _check_repeat(f"MLA S={s}", q, k, v, bias, lse, dout, delta, causal=True)
+
+    def plain_ms(fn, *a):
+        return event_ms(lambda: by_heads(lambda *x: fn(*x, causal=True), 4, *a))
+
+    pairs = b * h * s * (s + 1) // 2  # at or below the diagonal
+    qk, vo, rows = b * s * h * dqk * 2, b * s * h * dv * 2, b * h * s * 4
+
+    def least(n_bytes, ops_per_pair):
+        return bound(n_bytes, tensor_cores=pairs * ops_per_pair / BF16_FLOPS * 1e3,
+                     mufu_exp=pairs / EXP_PER_S * 1e3)
+
+    tol = "atol 1e-2 max|ref[b]| for each sample b + rtol 1e-2 |ref|"
+    common = dict(route="cuda", source=FLASH_SRC, path=f"Moonlight S={s}",
+                  shape=[b, s, h, dqk, dv], tol=tol, replaces="none (no causal or "
+                  "two-width attention in the JAX package)", library_ms=None,
+                  plain_timing="CUDA events around the loop over 4 head groups",
+                  bitwise_repeat=bitwise)
+    result = [
+        dict(name="flash_fwd", kernel=f"flash_mla_fwd_kernel<{dqk},{dv},1>",
+             err=errs["flash_fwd"],
+             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, bias, True), 5, 2),
+             plain_ms=plain_ms(fa.flash_fwd_plain, q, k, v, bias),
+             **least(2 * qk + 2 * vo + rows, 2 * dqk + 2 * dv),
+             tensor_flops=pairs * (2 * dqk + 2 * dv), **common),
+        dict(name="flash_bwd_dkdv", kernel=f"flash_mla_bwd_dkdv_kernel<{dqk},{dv},1>",
+             err=errs["flash_bwd_dkdv"],
+             ms=cuda_ms(lambda: fa.flash_bwd_dkdv(q, k, v, bias, lse, dout, delta, True),
+                        5, 2),
+             plain_ms=plain_ms(fa.flash_bwd_dkdv_plain, q, k, v, bias, lse, dout, delta),
+             **least(3 * qk + 3 * vo + 2 * rows, 4 * dqk + 4 * dv),
+             tensor_flops=pairs * (4 * dqk + 4 * dv), **common),
+        dict(name="flash_bwd_dq", kernel=f"flash_mla_bwd_dq_kernel<{dqk},{dv},1>",
+             err=errs["flash_bwd_dq"],
+             ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, dout, delta, True),
+                        5, 2),
+             plain_ms=plain_ms(fa.flash_bwd_dq_plain, q, k, v, bias, lse, dout, delta),
+             **least(3 * qk + 2 * vo + 2 * rows, 4 * dqk + 2 * dv),
+             tensor_flops=pairs * (4 * dqk + 2 * dv), **common),
+    ]
+    del q, k, v, dout, out, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    layers = 3
+    cfg, model = build_model("moonlight-16b-a3b", device="cuda", seed=seed,
+                             overrides=dict(num_hidden_layers=layers, vocab_size=20480,
+                                            experts_held=8))
+    params = dict(model.named_parameters())
+    step = make_accumulate_step(build_loss_fn(model))
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    batch = {"input_ids": ids, "labels": torch.roll(ids, -1, 1)}
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
+    for w in wrappers:
+        w.launches = 0
+    _acc, _n, metrics = step(params, zeros_like_grads(params), 0, batch)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    if not bool(torch.isfinite(metrics["loss"])):
+        fail(f"Moonlight micro-step: loss {float(metrics['loss'])}")
+    if set(launches.values()) != {layers}:
+        fail(f"Moonlight micro-step at [{b}, {s}], {layers} layers: launches {launches}")
+    log(f"[kernels] Moonlight micro-step at [{b}, {s}], {layers} layers: launches "
+        f"{launches}, loss {float(metrics['loss']):.4f}")
+    del model, params, step, _acc, metrics
+    counts = dict(launches=launches, launches_per_step=launches)
+    for row in result:
+        row["launch_counts"] = counts
+    return result
+
+
 def phase_kernels(seed: int) -> list:
     from torch.nn.attention import SDPBackend
 
@@ -634,6 +740,11 @@ def phase_kernels(seed: int) -> list:
     q, k, v, dout, bias = _flash_inputs(1, LONG_SEQ, 4, 64, gen, [LONG_SEQ])
     _check_flash("S=16384 peaked", q * 4, k, v, dout, bias, group=1)
     del q, k, v, dout, bias
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a generator of its own, so that the cases after it draw what they drew
+    # before it was added
+    results += _mla_rows(torch.Generator(device="cuda").manual_seed(seed + 1), seed)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3827,7 +3938,9 @@ def main(argv=None) -> int:
         name = k.pop("name")
         max_abs_err, samples_with_keys = k.pop("err")
         # launches: the count from the run of the path the row was measured at
-        run = {f"S={LONG_SEQ}": longctx, "SwAV": swav["local"]}.get(k["path"], path)
+        run = k.pop("launch_counts", None) or {
+            f"S={LONG_SEQ}": longctx, "SwAV": swav["local"]}.get(k["path"], path)
+        kernel = k.pop("kernel", None)
         rows.append(dict(
             name=name, route=k.pop("route"), source=k.pop("source"),
             replaces=k.pop("replaces"), launches=run["launches"][name],
@@ -3867,7 +3980,7 @@ def main(argv=None) -> int:
             # ptxas at the path's head dim: the registers a thread is launched
             # with (the backward's consumer warpgroups raise theirs with
             # setmaxnreg), and the tensor-core rate this call reached
-            rows[-1].update(build_regs[f"{name}_kernel<{k['shape'][3]}>"])
+            rows[-1].update(build_regs[kernel or f"{name}_kernel<{k['shape'][3]}>"])
             rows[-1]["tflops"] = k["tensor_flops"] / (rows[-1]["ms"] * 1e-3) / 1e12
     print(json.dumps({"build": {"nvcc_seconds": build_s, "ptxas": build_regs}}))
     print(json.dumps({"kernels": rows}))

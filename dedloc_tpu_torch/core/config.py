@@ -356,6 +356,13 @@ class TrainingArguments:
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # the deepseek_v3 family (--training.model_size moonlight-16b-a3b):
+    # this rank holds routed experts [r * n, r * n + n), r the
+    # mesh_device_offset; 0 takes n = n_routed / mesh_expert_devices
+    moe_experts_held: int = 0
+    # ... cut to its first layers_held layers, the final norm and the head
+    # on the last of them (0: the whole depth)
+    layers_held: int = 0
     # ZeRO-1: shard optimizer moments over the slice mesh's data axis
     # (state memory / n_devices; params+grads stay replicated for the
     # cross-slice averager). Requires mesh_devices > 1.

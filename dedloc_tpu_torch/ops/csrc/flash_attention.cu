@@ -128,52 +128,57 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // bf16 columns per swizzled column chunk of a D-wide tile (hopper.cuh)
 template <int D>
-constexpr int chunk_width() {
+__host__ __device__ constexpr int chunk_width() {
   return D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
 }
 
 // Shared memory of a block, from a 1024-byte aligned base: NRES resident
-// tiles of RES rows, STAGES ring slots of two streamed tiles of STREAM rows
-// and NROWS fp32 rows of STREAM, then the mbarriers.
-template <int D, int NRES_, int STREAM_, int STAGES_, int NROWS_>
+// tiles of RES rows (the first D0 wide, the second D1), STAGES ring slots of
+// two streamed tiles of STREAM rows (D0 wide, then D1) and NROWS fp32 rows
+// of STREAM, then the mbarriers.
+template <int D0_, int D1_, int NRES_, int STREAM_, int STAGES_, int NROWS_>
 struct Ring {
-  static constexpr int DIM = D;
-  static constexpr int CW = chunk_width<D>();
+  static constexpr int D0 = D0_;  // q/k side
+  static constexpr int D1 = D1_;  // v/dO side
   static constexpr int NRES = NRES_;
   static constexpr int RES = 128;  // resident rows: one 64-row slab per consumer warpgroup
   static constexpr int STREAM = STREAM_;  // rows per streamed tile
   static constexpr int STAGES = STAGES_;
   static constexpr int NROWS = NROWS_;
-  static constexpr int RES_BYTES = RES * D * 2;
-  static constexpr int TILE_BYTES = STREAM * D * 2;
-  static constexpr int SLOT_BYTES = 2 * TILE_BYTES;
-  static constexpr int OFF_STREAM = NRES * RES_BYTES;
+  static constexpr int RES_BYTES0 = RES * D0 * 2;
+  static constexpr int RES_BYTES1 = RES * D1 * 2;
+  static constexpr int TILE_BYTES0 = STREAM * D0 * 2;
+  static constexpr int TILE_BYTES1 = STREAM * D1 * 2;
+  static constexpr int SLOT_BYTES = TILE_BYTES0 + TILE_BYTES1;
+  static constexpr int OFF_STREAM = RES_BYTES0 + (NRES == 2 ? RES_BYTES1 : 0);
   static constexpr int OFF_ROWS = OFF_STREAM + STAGES * SLOT_BYTES;
   static constexpr int OFF_BARS = OFF_ROWS + STAGES * NROWS * STREAM * 4;
   static constexpr int SMEM = OFF_BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
-  static_assert(RES_BYTES % 1024 == 0 && TILE_BYTES % 1024 == 0, "swizzle alignment");
+  static_assert(RES_BYTES0 % 1024 == 0 && RES_BYTES1 % 1024 == 0 && TILE_BYTES0 % 1024 == 0 &&
+                    TILE_BYTES1 % 1024 == 0,
+                "swizzle alignment");
   static_assert(STREAM % 64 == 0, "streamed tiles are loaded as 64-row boxes");
   static_assert(SMEM <= SMEM_LIMIT, "shared memory");
 };
 
 // the backward: two resident tiles, 64-row tiles of two tensors and two rows
-template <int D>
-using Bwd = Ring<D, 2, 64, 3, 2>;
+template <int DQK, int DV>
+using Bwd = Ring<DQK, DV, 2, 64, 3, 2>;
 
 // The forward: Q resident, FWD_BK-key tiles of K and V and the bias row, as
 // many stages as fit (at most 4): Ring's layout is Q, the res barrier and
 // the alignment slack, then per stage K, V, the bias row and two barriers.
 constexpr int FWD_BK = 128;
 
-template <int D>
+template <int DQK, int DV>
 constexpr int fwd_stages() {
-  const int fit =
-      (SMEM_LIMIT - (128 * D * 2 + 8 + 1024)) / (2 * FWD_BK * D * 2 + FWD_BK * 4 + 16);
+  const int fit = (SMEM_LIMIT - (128 * DQK * 2 + 8 + 1024)) /
+                  (FWD_BK * (DQK + DV) * 2 + FWD_BK * 4 + 16);
   return fit < 4 ? fit : 4;
 }
 
-template <int D>
-using Fwd = Ring<D, 1, FWD_BK, fwd_stages<D>(), 1>;
+template <int DQK, int DV>
+using Fwd = Ring<DQK, DV, 1, FWD_BK, fwd_stages<DQK, DV>(), 1>;
 
 // The block's shared memory and barriers: full[s] (the producer warp's 32
 // arrivals plus the TMA bytes of slot s), empty[s] (every consumer thread
@@ -187,9 +192,9 @@ struct RingSmem {
     base = (raw + 1023u) & ~1023u;
     rows = reinterpret_cast<float*>(raw_ptr + (base - raw) + C::OFF_ROWS);
   }
-  __device__ uint32_t res(int i) const { return base + i * C::RES_BYTES; }
+  __device__ uint32_t res(int i) const { return base + i * C::RES_BYTES0; }
   __device__ uint32_t tile(int slot, int i) const {
-    return base + C::OFF_STREAM + slot * C::SLOT_BYTES + i * C::TILE_BYTES;
+    return base + C::OFF_STREAM + slot * C::SLOT_BYTES + i * C::TILE_BYTES0;
   }
   __device__ float* row(int slot, int i) const { return rows + (C::NROWS * slot + i) * C::STREAM; }
   __device__ uint32_t full(int slot) const { return base + C::OFF_BARS + 8 * slot; }
@@ -211,60 +216,62 @@ struct RingSmem {
   }
 };
 
-// rows [row0, row0 + 128) of head (b, h) of the NRES tensors (m0, then m1)
-// into the resident tiles, as 64-row boxes per column chunk (one thread)
+// rows [row0, row0 + ROWS) of head (b, h) of a DW-wide tensor into the
+// tile at dst, as 64-row boxes per column chunk (one thread)
+template <int DW, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int b, int h, int row0) {
+  constexpr int CW = chunk_width<DW>();
+#pragma unroll
+  for (int c = 0; c < DW / CW; ++c)
+#pragma unroll
+    for (int box = 0; box < ROWS / 64; ++box)
+      hopper::tma_load_4d(dst + c * ROWS * CW * 2 + box * 64 * CW * 2, map, bar, c * CW, h,
+                          row0 + 64 * box, b);
+}
+
+// rows [row0, row0 + 128) of head (b, h) of the NRES tensors (m0, D0 wide,
+// then m1, D1 wide) into the resident tiles (one thread)
 template <typename C>
 __device__ __forceinline__ void load_resident(const RingSmem<C>& sm, const CUtensorMap* m0,
                                               const CUtensorMap* m1, int b, int h, int row0) {
-  hopper::mbar_expect_tx(sm.res_bar(), C::NRES * C::RES_BYTES);
-#pragma unroll
-  for (int c = 0; c < C::DIM / C::CW; ++c)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const uint32_t off = c * C::RES * C::CW * 2 + half * 64 * C::CW * 2;
-      hopper::tma_load_4d(sm.res(0) + off, m0, sm.res_bar(), c * C::CW, h, row0 + 64 * half, b);
-      if constexpr (C::NRES == 2)
-        hopper::tma_load_4d(sm.res(1) + off, m1, sm.res_bar(), c * C::CW, h, row0 + 64 * half,
-                            b);
-    }
+  hopper::mbar_expect_tx(sm.res_bar(), C::RES_BYTES0 + (C::NRES == 2 ? C::RES_BYTES1 : 0));
+  load_tile<C::D0, C::RES>(sm.res(0), m0, sm.res_bar(), b, h, row0);
+  if constexpr (C::NRES == 2) load_tile<C::D1, C::RES>(sm.res(1), m1, sm.res_bar(), b, h, row0);
   hopper::mbar_arrive(sm.res_bar());
 }
 
-// rows [row0, row0 + STREAM) of head (b, h) of two tensors into ring slot s,
-// as 64-row boxes (one thread; the slot's full barrier counts the bytes)
+// rows [row0, row0 + STREAM) of head (b, h) of two tensors (D0 wide, then
+// D1) into ring slot s (one thread; the slot's full barrier counts the bytes)
 template <typename C>
 __device__ __forceinline__ void load_stream(const RingSmem<C>& sm, int s, const CUtensorMap* m0,
                                             const CUtensorMap* m1, int b, int h, int row0) {
   hopper::mbar_expect_tx(sm.full(s), C::SLOT_BYTES);
-#pragma unroll
-  for (int c = 0; c < C::DIM / C::CW; ++c)
-#pragma unroll
-    for (int box = 0; box < C::STREAM / 64; ++box) {
-      const uint32_t off = c * C::STREAM * C::CW * 2 + box * 64 * C::CW * 2;
-      hopper::tma_load_4d(sm.tile(s, 0) + off, m0, sm.full(s), c * C::CW, h, row0 + 64 * box, b);
-      hopper::tma_load_4d(sm.tile(s, 1) + off, m1, sm.full(s), c * C::CW, h, row0 + 64 * box, b);
-    }
+  load_tile<C::D0, C::STREAM>(sm.tile(s, 0), m0, sm.full(s), b, h, row0);
+  load_tile<C::D1, C::STREAM>(sm.tile(s, 1), m1, sm.full(s), b, h, row0);
 }
 
 // S (or S^T, dP, dP^T) = rows [64 w, +64) of a resident tile . (a streamed
-// tile)^T over D: one wgmma per 16 columns, both operands K-major
-template <typename C>
+// tile)^T over their common width DW: one wgmma per 16 columns, both
+// operands K-major
+template <typename C, int DW>
 __device__ __forceinline__ void score_product(float (&acc)[C::STREAM / 2], uint32_t res, int w,
                                               uint32_t tile) {
+  constexpr int CW = chunk_width<DW>();
 #pragma unroll
-  for (int kk = 0; kk < C::DIM / 16; ++kk)
-    hopper::wgmma_ss<C::STREAM>(acc, hopper::desc_kmajor<C::CW, C::RES>(res, 64 * w, kk),
-                                hopper::desc_kmajor<C::CW, C::STREAM>(tile, 0, kk), kk > 0);
+  for (int kk = 0; kk < DW / 16; ++kk)
+    hopper::wgmma_ss<C::STREAM>(acc, hopper::desc_kmajor<CW, C::RES>(res, 64 * w, kk),
+                                hopper::desc_kmajor<CW, C::STREAM>(tile, 0, kk), kk > 0);
 }
 
-// acc[64 x D] += A[64 x STREAM] (registers) . (a streamed tile, STREAM x D)
-template <typename C>
-__device__ __forceinline__ void grad_product(float (&acc)[C::DIM / 2],
+// acc[64 x DW] += A[64 x STREAM] (registers) . (a streamed tile, STREAM x DW)
+template <typename C, int DW>
+__device__ __forceinline__ void grad_product(float (&acc)[DW / 2],
                                              const uint32_t (&a)[C::STREAM / 16][4],
                                              uint32_t tile) {
 #pragma unroll
   for (int kk = 0; kk < C::STREAM / 16; ++kk)
-    hopper::wgmma_rs_t_wide<C::DIM, C::CW, C::STREAM>(acc, a[kk], tile, kk);
+    hopper::wgmma_rs_t_wide<DW, chunk_width<DW>(), C::STREAM>(acc, a[kk], tile, kk);
 }
 
 // the A fragments (K = N in steps of 16) of a 64 x N wgmma accumulator,
@@ -297,9 +304,12 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 2], int row_g, 
 
 // The block's (head, tile): the tiles of one head go to neighbouring blocks,
 // so the blocks running together stream the same head's tiles through L2.
-__device__ __forceinline__ void block_tile(int& bh, int& tile) {
+// ``last_first`` numbers the tiles from the last (a causal forward or dQ,
+// whose last tiles have the most keys, launches them first).
+__device__ __forceinline__ void block_tile(int& bh, int& tile, bool last_first = false) {
   const int lin = blockIdx.y * gridDim.x + blockIdx.x;
   tile = lin % gridDim.y;
+  if (last_first) tile = gridDim.y - 1 - tile;
   bh = lin / gridDim.y;
 }
 
@@ -308,11 +318,13 @@ __device__ __forceinline__ void block_tile(int& bh, int& tile) {
 // The online softmax of one BK-key tile for a consumer thread's two rows:
 // s = acc * scale + bias, m_new = max(m, rowmax s), p = exp(s - m_new) in
 // place, corr = exp(m - m_new); l (this thread's share of the row sum) =
-// l * corr + sum p. Keys past S have bias -inf and get p = 0.
-template <int BK>
+// l * corr + sum p. Keys past S have bias -inf and get p = 0; with MASK
+// (the causal diagonal tile) so does a key past the row (key0 is the tile's
+// first key, row the thread's first row, row + 8 its second).
+template <int BK, bool MASK>
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const float* r_bias,
                                                float scale, float (&m)[2], float (&l)[2],
-                                               float (&corr)[2]) {
+                                               float (&corr)[2], int key0, int row) {
   const int t = threadIdx.x % 4;
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -322,6 +334,13 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const float*
     sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale, kb.y);
     sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale, kb.x);
     sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale, kb.y);
+    if constexpr (MASK) {
+      const int k = key0 + 8 * j + 2 * t;
+      if (k > row) sc[4 * j + 0] = neg_infinity();
+      if (k + 1 > row) sc[4 * j + 1] = neg_infinity();
+      if (k > row + 8) sc[4 * j + 2] = neg_infinity();
+      if (k + 1 > row + 8) sc[4 * j + 3] = neg_infinity();
+    }
     mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -350,23 +369,23 @@ __device__ __forceinline__ void turn_pass(int w) { hopper::bar_arrive<256>(2 - w
 
 // One block per (batch*head, 128-query tile). The two consumer warpgroups
 // issue their products in turns, and each waits only for S_j before its
-// softmax, so the softmax runs while P_{j-1}.V_{j-1} is in flight.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ lse, Strides so, int S, int H,
-                     float scale) {
-  using C = Fwd<D>;
+// softmax, so the softmax runs while P_{j-1}.V_{j-1} is in flight. Causal:
+// the key tiles up to the block's own (the last, masked; BK = 128 = RES).
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                         const CUtensorMap& tm_v, const float* __restrict__ bias,
+                                         bf16* __restrict__ out, float* __restrict__ lse,
+                                         Strides so, int S, int H, float scale) {
+  using C = Fwd<DQK, DV>;
   constexpr int BK = FWD_BK;
+  static_assert(BK == C::RES, "the causal diagonal is one key tile");
   extern __shared__ unsigned char smem[];
   const RingSmem<C> sm(smem);
   int bh, qt;
-  block_tile(bh, qt);
+  block_tile(bh, qt, CAUSAL);
   const int b = bh / H, h = bh % H;
   const int q0 = qt * C::RES;
-  const int n_tiles = (S + BK - 1) / BK;
+  const int n_tiles = CAUSAL ? (min(S, q0 + C::RES) + BK - 1) / BK : (S + BK - 1) / BK;
   sm.init_barriers();
 
   if (threadIdx.x < 128) {
@@ -395,9 +414,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int w = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
     const int row_g = q0 + 64 * w + 16 * warp + lane / 4;  // and row_g + 8
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
     float sc[BK / 2];         // S_j, then P_j in fp32
     uint32_t pa[BK / 16][4];  // P_{j-1} as bf16 A fragments
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, corr[2];
@@ -409,12 +428,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     hopper::mbar_wait(sm.full(0), 0);
     turn_wait(w);
     hopper::wgmma_fence();
-    score_product<C>(sc, sm.res(0), w, sm.tile(0, 0));  // S_0 = Q . K_0^T
+    score_product<C, DQK>(sc, sm.res(0), w, sm.tile(0, 0));  // S_0 = Q . K_0^T
     hopper::wgmma_commit();
     turn_pass(w);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
-    online_softmax<BK>(sc, sm.row(0, 0), scale, m, l, corr);
+    if (CAUSAL && n_tiles == 1)
+      online_softmax<BK, true>(sc, sm.row(0, 0), scale, m, l, corr, 0, row_g);
+    else
+      online_softmax<BK, false>(sc, sm.row(0, 0), scale, m, l, corr, 0, row_g);
     acc_to_a<BK>(pa, sc);
 
     for (int it = 1; it < n_tiles; ++it) {
@@ -423,20 +445,23 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::mbar_wait(sm.full(s), (it / C::STAGES) & 1);
       turn_wait(w);
       hopper::wgmma_fence();
-      score_product<C>(sc, sm.res(0), w, sm.tile(s, 0));  // S_j = Q . K_j^T
+      score_product<C, DQK>(sc, sm.res(0), w, sm.tile(s, 0));  // S_j = Q . K_j^T
       hopper::wgmma_commit();
-      grad_product<C>(o, pa, sm.tile(prev, 1));  // O += P_{j-1} . V_{j-1}
+      grad_product<C, DV>(o, pa, sm.tile(prev, 1));  // O += P_{j-1} . V_{j-1}
       hopper::wgmma_commit();
       turn_pass(w);
       hopper::wgmma_wait<1>();  // S_j only
       hopper::fence_regs(sc);
-      online_softmax<BK>(sc, sm.row(s, 0), scale, m, l, corr);
+      if (CAUSAL && it == n_tiles - 1)
+        online_softmax<BK, true>(sc, sm.row(s, 0), scale, m, l, corr, it * BK, row_g);
+      else
+        online_softmax<BK, false>(sc, sm.row(s, 0), scale, m, l, corr, it * BK, row_g);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(o);
       hopper::fence_regs(pa);
       hopper::mbar_arrive(sm.empty(prev));
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i % 4) / 2];
       acc_to_a<BK>(pa, sc);
     }
 
@@ -444,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int last = (n_tiles - 1) % C::STAGES;
     turn_wait(w);
     hopper::wgmma_fence();
-    grad_product<C>(o, pa, sm.tile(last, 1));
+    grad_product<C, DV>(o, pa, sm.tile(last, 1));
     hopper::wgmma_commit();
     if (w == 0) turn_pass(w);  // warpgroup 1 issues last
     hopper::wgmma_wait<0>();
@@ -456,8 +481,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // lse = m + log(max(l, 1e-30))
     const float sl[2] = {fmaxf(quad_sum(l[0]), 1e-30f), fmaxf(quad_sum(l[1]), 1e-30f)};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] /= sl[(i % 4) / 2];
-    store_acc<D>(o, row_g, S, out, so, b, h);
+    for (int i = 0; i < DV / 2; ++i) o[i] /= sl[(i % 4) / 2];
+    store_acc<DV>(o, row_g, S, out, so, b, h);
     if (lane % 4 == 0) {
       if (row_g < S) lse[(long long)bh * S + row_g] = m[0] + logf(sl[0]);
       if (row_g + 8 < S) lse[(long long)bh * S + row_g + 8] = m[1] + logf(sl[1]);
@@ -467,24 +492,26 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ----------------------------------------------------------- backward dK/dV
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const __grid_constant__ CUtensorMap tm_do,
-                          const float* __restrict__ bias, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, Strides sdk, Strides sdv, int S, int H,
-                          float scale) {
-  using C = Bwd<D>;
+// Causal: the query tiles from the block's first key on; the two that the
+// diagonal crosses are masked.
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void bwd_dkdv_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                              const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                              Strides sdk, Strides sdv, int S, int H,
+                                              float scale) {
+  using C = Bwd<DQK, DV>;
   extern __shared__ unsigned char smem[];
   const RingSmem<C> sm(smem);
   int bh, kt;
   block_tile(bh, kt);
   const int b = bh / H, h = bh % H;
   const int k0 = kt * C::RES;
-  const int n_tiles = (S + C::STREAM - 1) / C::STREAM;
+  const int first = CAUSAL ? k0 / C::STREAM : 0;
+  const int n_tiles = (S + C::STREAM - 1) / C::STREAM - first;
   sm.init_barriers();
 
   if (threadIdx.x < 128) {
@@ -495,7 +522,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) load_resident(sm, &tm_k, &tm_v, b, h, k0);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % C::STAGES;
-      const int q0 = it * C::STREAM;
+      const int q0 = (first + it) * C::STREAM;
       hopper::mbar_wait(sm.empty(s), ((it / C::STAGES) & 1) ^ 1);
       if (lane == 0) load_stream(sm, s, &tm_q, &tm_do, b, h, q0);
       float* r_lse = sm.row(s, 0);
@@ -519,9 +546,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float kb0 = key0 < S ? bias[(long long)b * S + key0] : neg_infinity();
     const float kb1 = key1 < S ? bias[(long long)b * S + key1] : neg_infinity();
 
-    float acc_dv[D / 2], acc_dk[D / 2];
+    float acc_dv[DV / 2], acc_dk[DQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_dv[i] = acc_dk[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) acc_dv[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DQK / 2; ++i) acc_dk[i] = 0.0f;
 
     hopper::mbar_wait(sm.res_bar(), 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -533,9 +562,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 queries
       hopper::wgmma_fence();
-      score_product<C>(st, sm.res(0), w, sQ);  // S^T = K . Q^T
+      score_product<C, DQK>(st, sm.res(0), w, sQ);  // S^T = K . Q^T
       hopper::wgmma_commit();
-      score_product<C>(dpt, sm.res(1), w, sDO);  // dP^T = V . dO^T
+      score_product<C, DV>(dpt, sm.res(1), w, sDO);  // dP^T = V . dO^T
       hopper::wgmma_commit();
 
       hopper::wgmma_wait<1>();
@@ -547,6 +576,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         st[4 * j + 1] = hopper::exp2_approx((fmaf(st[4 * j + 1], scale, kb0) - l.y) * LOG2E);
         st[4 * j + 2] = hopper::exp2_approx((fmaf(st[4 * j + 2], scale, kb1) - l.x) * LOG2E);
         st[4 * j + 3] = hopper::exp2_approx((fmaf(st[4 * j + 3], scale, kb1) - l.y) * LOG2E);
+      }
+      if (CAUSAL && (first + it) * C::STREAM < k0 + C::RES) {
+        // a query before the key: p = 0
+        const int q = (first + it) * C::STREAM + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (q + 8 * j < key0) st[4 * j + 0] = 0.0f;
+          if (q + 8 * j + 1 < key0) st[4 * j + 1] = 0.0f;
+          if (q + 8 * j < key1) st[4 * j + 2] = 0.0f;
+          if (q + 8 * j + 1 < key1) st[4 * j + 3] = 0.0f;
+        }
       }
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dpt);
@@ -563,8 +603,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       acc_to_a<64>(dsa, dpt);
 
       hopper::wgmma_fence();
-      grad_product<C>(acc_dv, pa, sDO);  // dV += P^T . dO
-      grad_product<C>(acc_dk, dsa, sQ);  // dK += dS^T . Q
+      grad_product<C, DV>(acc_dv, pa, sDO);  // dV += P^T . dO
+      grad_product<C, DQK>(acc_dk, dsa, sQ);  // dK += dS^T . Q
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc_dv);
@@ -574,30 +614,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::mbar_arrive(sm.empty(s));
     }
 
-    store_acc<D>(acc_dv, key0, S, dv, sdv, b, h);
-    store_acc<D>(acc_dk, key0, S, dk, sdk, b, h);
+    store_acc<DV>(acc_dv, key0, S, dv, sdv, b, h);
+    store_acc<DQK>(acc_dk, key0, S, dk, sdk, b, h);
   }
 }
 
 // -------------------------------------------------------------- backward dQ
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
-                        const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v,
-                        const __grid_constant__ CUtensorMap tm_do,
-                        const float* __restrict__ bias, const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq, Strides sdq,
-                        int S, int H, float scale) {
-  using C = Bwd<D>;
+// Causal: the key tiles up to the block's last query; the two that the
+// diagonal crosses are masked.
+template <int DQK, int DV, bool CAUSAL>
+__device__ __forceinline__ void bwd_dq_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                            const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            bf16* __restrict__ dq, Strides sdq, int S, int H,
+                                            float scale) {
+  using C = Bwd<DQK, DV>;
   extern __shared__ unsigned char smem[];
   const RingSmem<C> sm(smem);
   int bh, qt;
-  block_tile(bh, qt);
+  block_tile(bh, qt, CAUSAL);
   const int b = bh / H, h = bh % H;
   const int q0 = qt * C::RES;
-  const int n_tiles = (S + C::STREAM - 1) / C::STREAM;
+  const int n_tiles = ((CAUSAL ? min(S, q0 + C::RES) : S) + C::STREAM - 1) / C::STREAM;
   sm.init_barriers();
 
   if (threadIdx.x < 128) {
@@ -632,9 +673,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float delta0 = qr0 < S ? delta[(long long)bh * S + qr0] : 0.0f;
     const float delta1 = qr1 < S ? delta[(long long)bh * S + qr1] : 0.0f;
 
-    float acc_dq[D / 2];
+    float acc_dq[DQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.0f;
+    for (int i = 0; i < DQK / 2; ++i) acc_dq[i] = 0.0f;
 
     hopper::mbar_wait(sm.res_bar(), 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -645,9 +686,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       float sc[32], dp[32];  // S and dP: 64 queries x 64 keys
       hopper::wgmma_fence();
-      score_product<C>(sc, sm.res(0), w, sK);  // S = Q . K^T
+      score_product<C, DQK>(sc, sm.res(0), w, sK);  // S = Q . K^T
       hopper::wgmma_commit();
-      score_product<C>(dp, sm.res(1), w, sV);  // dP = dO . V^T
+      score_product<C, DV>(dp, sm.res(1), w, sV);  // dP = dO . V^T
       hopper::wgmma_commit();
 
       hopper::wgmma_wait<1>();
@@ -659,6 +700,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         sc[4 * j + 1] = hopper::exp2_approx((fmaf(sc[4 * j + 1], scale, kb.y) - lse0) * LOG2E);
         sc[4 * j + 2] = hopper::exp2_approx((fmaf(sc[4 * j + 2], scale, kb.x) - lse1) * LOG2E);
         sc[4 * j + 3] = hopper::exp2_approx((fmaf(sc[4 * j + 3], scale, kb.y) - lse1) * LOG2E);
+      }
+      if (CAUSAL && it * C::STREAM + C::STREAM > q0) {
+        // a key after the query: p = 0
+        const int k = it * C::STREAM + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (k + 8 * j > qr0) sc[4 * j + 0] = 0.0f;
+          if (k + 8 * j + 1 > qr0) sc[4 * j + 1] = 0.0f;
+          if (k + 8 * j > qr1) sc[4 * j + 2] = 0.0f;
+          if (k + 8 * j + 1 > qr1) sc[4 * j + 3] = 0.0f;
+        }
       }
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
@@ -673,7 +725,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       acc_to_a<64>(dsa, dp);
 
       hopper::wgmma_fence();
-      grad_product<C>(acc_dq, dsa, sK);  // dQ += dS . K
+      grad_product<C, DQK>(acc_dq, dsa, sK);  // dQ += dS . K
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc_dq);
@@ -681,8 +733,85 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::mbar_arrive(sm.empty(s));
     }
 
-    store_acc<D>(acc_dq, qr0, S, dq, sdq, b, h);
+    store_acc<DQK>(acc_dq, qr0, S, dq, sdq, b, h);
   }
+}
+
+// ----------------------------------------------------------------- kernels
+
+// ALBERT's kernels: one width, the per-key bias alone (their names are what
+// the traces and the benchmark's flash_roofline read)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ lse, Strides so, int S, int H,
+                     float scale) {
+  fwd_body<D, D, false>(tm_q, tm_k, tm_v, bias, out, lse, so, S, H, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, Strides sdk, Strides sdv, int S, int H,
+                          float scale) {
+  bwd_dkdv_body<D, D, false>(tm_q, tm_k, tm_v, tm_do, bias, lse, delta, dk, dv, sdk, sdv, S, H,
+                             scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ bias, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, Strides sdq,
+                        int S, int H, float scale) {
+  bwd_dq_body<D, D, false>(tm_q, tm_k, tm_v, tm_do, bias, lse, delta, dq, sdq, S, H, scale);
+}
+
+// Latent attention's kernels: q/k DQK wide, v/out DV wide, causal or not
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ bias, bf16* __restrict__ out,
+                         float* __restrict__ lse, Strides so, int S, int H, float scale) {
+  fwd_body<DQK, DV, CAUSAL>(tm_q, tm_k, tm_v, bias, out, lse, so, S, H, scale);
+}
+
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_mla_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ bias, const float* __restrict__ lse,
+                              const float* __restrict__ delta, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, Strides sdk, Strides sdv, int S, int H,
+                              float scale) {
+  bwd_dkdv_body<DQK, DV, CAUSAL>(tm_q, tm_k, tm_v, tm_do, bias, lse, delta, dk, dv, sdk, sdv, S,
+                                 H, scale);
+}
+
+template <int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_mla_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ bias, const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dq, Strides sdq,
+                            int S, int H, float scale) {
+  bwd_dq_body<DQK, DV, CAUSAL>(tm_q, tm_k, tm_v, tm_do, bias, lse, delta, dq, sdq, S, H, scale);
 }
 
 // ------------------------------------------------------------------ launch
@@ -700,67 +829,71 @@ bool encode_map(CUtensorMap* map, const bf16* t, Strides st, int B, int S, int H
   return hopper::encode_bshd<chunk_width<D>(), 64>(map, t, B, S, H, D, st.b, st.s, st.h);
 }
 
-template <int D>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias,
-                       bf16* out, float* lse, Strides sq, Strides sk, Strides sv, Strides so,
-                       int B, int S, int H, float scale, cudaStream_t stream) {
-  using C = Fwd<D>;
+// A forward launch of ``kernel`` (q/k DQK wide, v/out DV wide); each kernel
+// is its own instantiation, so each raises its own shared-memory limit
+template <int DQK, int DV, auto kernel>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
+                       const float* bias, bf16* out, float* lse, Strides sq, Strides sk,
+                       Strides sv, Strides so, int B, int S, int H, float scale,
+                       cudaStream_t stream) {
+  using C = Fwd<DQK, DV>;
   // raised once per instantiation (not per launch, so launches can be
   // captured into a CUDA graph)
-  static const cudaError_t limit = set_smem_limit(flash_fwd_kernel<D>, C::SMEM);
+  static const cudaError_t limit = set_smem_limit(kernel, C::SMEM);
   if (limit != cudaSuccess) return limit;
   // the maps go by value as kernel parameters, so a captured graph keeps them
   CUtensorMap maps[3];
-  if (!(encode_map<D>(&maps[0], q, sq, B, S, H) && encode_map<D>(&maps[1], k, sk, B, S, H) &&
-        encode_map<D>(&maps[2], v, sv, B, S, H)))
+  if (!(encode_map<DQK>(&maps[0], q, sq, B, S, H) && encode_map<DQK>(&maps[1], k, sk, B, S, H) &&
+        encode_map<DV>(&maps[2], v, sv, B, S, H)))
     return cudaErrorInvalidValue;
   dim3 grid(B * H, (S + C::RES - 1) / C::RES);
-  flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], bias, out,
-                                                          lse, so, S, H, scale);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(maps[0], maps[1], maps[2], bias, out, lse, so, S, H,
+                                             scale);
   return cudaGetLastError();
 }
 
 // the four bf16 [B, S, H, D] tensor maps of a backward launch
-template <int D>
+template <int DQK, int DV>
 bool encode_bwd_maps(CUtensorMap (&maps)[4], const bf16* q, const bf16* k, const bf16* v,
                      const bf16* dout, Strides sq, Strides sk, Strides sv, Strides sdo, int B,
                      int S, int H) {
-  return encode_map<D>(&maps[0], q, sq, B, S, H) && encode_map<D>(&maps[1], k, sk, B, S, H) &&
-         encode_map<D>(&maps[2], v, sv, B, S, H) && encode_map<D>(&maps[3], dout, sdo, B, S, H);
+  return encode_map<DQK>(&maps[0], q, sq, B, S, H) && encode_map<DQK>(&maps[1], k, sk, B, S, H) &&
+         encode_map<DV>(&maps[2], v, sv, B, S, H) && encode_map<DV>(&maps[3], dout, sdo, B, S, H);
 }
 
-template <int D>
-cudaError_t launch_bwd_dkdv(const bf16* q, const bf16* k, const bf16* v, const float* bias,
-                            const float* lse, const float* delta, const bf16* dout, bf16* dk,
-                            bf16* dv, Strides sq, Strides sk, Strides sv, Strides sdo,
-                            Strides sdk, Strides sdv, int B, int S, int H, float scale,
-                            cudaStream_t stream) {
-  constexpr int smem = Bwd<D>::SMEM;
-  static const cudaError_t limit = set_smem_limit(flash_bwd_dkdv_kernel<D>, smem);
+template <int DQK, int DV, auto kernel>
+cudaError_t launch_bwd_dkdv(const bf16* q, const bf16* k, const bf16* v,
+                            const float* bias, const float* lse, const float* delta,
+                            const bf16* dout, bf16* dk, bf16* dv, Strides sq, Strides sk,
+                            Strides sv, Strides sdo, Strides sdk, Strides sdv, int B, int S,
+                            int H, float scale, cudaStream_t stream) {
+  constexpr int smem = Bwd<DQK, DV>::SMEM;
+  static const cudaError_t limit = set_smem_limit(kernel, smem);
   if (limit != cudaSuccess) return limit;
   CUtensorMap maps[4];
-  if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
+  if (!encode_bwd_maps<DQK, DV>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
     return cudaErrorInvalidValue;
-  dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
-  flash_bwd_dkdv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dk, dv, sdk, sdv, S, H, scale);
+  dim3 grid(B * H, (S + Bwd<DQK, DV>::RES - 1) / Bwd<DQK, DV>::RES);
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], bias, lse, delta,
+                                          dk, dv, sdk, sdv, S, H, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bwd_dq(const bf16* q, const bf16* k, const bf16* v, const float* bias,
-                          const float* lse, const float* delta, const bf16* dout, bf16* dq,
-                          Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int B,
-                          int S, int H, float scale, cudaStream_t stream) {
-  constexpr int smem = Bwd<D>::SMEM;
-  static const cudaError_t limit = set_smem_limit(flash_bwd_dq_kernel<D>, smem);
+template <int DQK, int DV, auto kernel>
+cudaError_t launch_bwd_dq(const bf16* q, const bf16* k, const bf16* v,
+                          const float* bias, const float* lse, const float* delta,
+                          const bf16* dout, bf16* dq, Strides sq, Strides sk, Strides sv,
+                          Strides sdo, Strides sdq, int B, int S, int H, float scale,
+                          cudaStream_t stream) {
+  constexpr int smem = Bwd<DQK, DV>::SMEM;
+  static const cudaError_t limit = set_smem_limit(kernel, smem);
   if (limit != cudaSuccess) return limit;
   CUtensorMap maps[4];
-  if (!encode_bwd_maps<D>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
+  if (!encode_bwd_maps<DQK, DV>(maps, q, k, v, dout, sq, sk, sv, sdo, B, S, H))
     return cudaErrorInvalidValue;
-  dim3 grid(B * H, (S + Bwd<D>::RES - 1) / Bwd<D>::RES);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], bias, lse, delta, dq, sdq, S, H, scale);
+  dim3 grid(B * H, (S + Bwd<DQK, DV>::RES - 1) / Bwd<DQK, DV>::RES);
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], bias, lse, delta,
+                                          dq, sdq, S, H, scale);
   return cudaGetLastError();
 }
 
@@ -781,6 +914,20 @@ Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
     default: return (int)cudaErrorInvalidValue;        \
   }
 
+// the latent-attention widths (q/k, v) and the causal flag instantiated
+#define DISPATCH_MLA(DQK, DV, CAUSAL, CALL)                                          \
+  if ((DQK) == 192 && (DV) == 128) {                                                 \
+    constexpr int kDqk = 192, kDv = 128;                                             \
+    if (CAUSAL) {                                                                    \
+      constexpr bool kCausal = true;                                                 \
+      return CALL;                                                                   \
+    } else {                                                                         \
+      constexpr bool kCausal = false;                                                \
+      return CALL;                                                                   \
+    }                                                                                \
+  }                                                                                  \
+  return (int)cudaErrorInvalidValue;
+
 // Plain C interface (loaded with ctypes). Each *_strides argument points at
 // three int64 element strides (batch, sequence, head) of a [B, S, H, D]
 // tensor. Every entry point returns cudaGetLastError() after its launch.
@@ -790,11 +937,11 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* bias, voi
               void* lse, const long long* q_strides, const long long* k_strides,
               const long long* v_strides, const long long* out_strides, int B, int S, int H,
               int D, float scale, void* stream) {
-  DISPATCH_HEAD_DIM(D, (int)launch_fwd<kD>(
-                           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                           (bf16*)out, (float*)lse, strides_of(q_strides),
-                           strides_of(k_strides), strides_of(v_strides),
-                           strides_of(out_strides), B, S, H, scale, (cudaStream_t)stream))
+  DISPATCH_HEAD_DIM(D, (int)(launch_fwd<kD, kD, flash_fwd_kernel<kD>>(
+                           (const bf16*)q, (const bf16*)k,
+                           (const bf16*)v, (const float*)bias, (bf16*)out, (float*)lse,
+                           strides_of(q_strides), strides_of(k_strides), strides_of(v_strides),
+                           strides_of(out_strides), B, S, H, scale, (cudaStream_t)stream)))
 }
 
 int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias,
@@ -803,13 +950,13 @@ int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias
                    const long long* v_strides, const long long* dout_strides,
                    const long long* dk_strides, const long long* dv_strides, int B, int S,
                    int H, int D, float scale, void* stream) {
-  DISPATCH_HEAD_DIM(D, (int)launch_bwd_dkdv<kD>(
-                           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                           (const float*)lse, (const float*)delta, (const bf16*)dout,
-                           (bf16*)dk, (bf16*)dv, strides_of(q_strides), strides_of(k_strides),
-                           strides_of(v_strides), strides_of(dout_strides),
-                           strides_of(dk_strides), strides_of(dv_strides), B, S, H, scale,
-                           (cudaStream_t)stream))
+  DISPATCH_HEAD_DIM(D, (int)(launch_bwd_dkdv<kD, kD, flash_bwd_dkdv_kernel<kD>>(
+                           (const bf16*)q, (const bf16*)k,
+                           (const bf16*)v, (const float*)bias, (const float*)lse,
+                           (const float*)delta, (const bf16*)dout, (bf16*)dk, (bf16*)dv,
+                           strides_of(q_strides), strides_of(k_strides), strides_of(v_strides),
+                           strides_of(dout_strides), strides_of(dk_strides),
+                           strides_of(dv_strides), B, S, H, scale, (cudaStream_t)stream)))
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
@@ -818,12 +965,56 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                  const long long* v_strides, const long long* dout_strides,
                  const long long* dq_strides, int B, int S, int H, int D, float scale,
                  void* stream) {
-  DISPATCH_HEAD_DIM(D, (int)launch_bwd_dq<kD>(
-                           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-                           (const float*)lse, (const float*)delta, (const bf16*)dout,
-                           (bf16*)dq, strides_of(q_strides), strides_of(k_strides),
-                           strides_of(v_strides), strides_of(dout_strides),
-                           strides_of(dq_strides), B, S, H, scale, (cudaStream_t)stream))
+  DISPATCH_HEAD_DIM(D, (int)(launch_bwd_dq<kD, kD, flash_bwd_dq_kernel<kD>>(
+                           (const bf16*)q, (const bf16*)k,
+                           (const bf16*)v, (const float*)bias, (const float*)lse,
+                           (const float*)delta, (const bf16*)dout, (bf16*)dq,
+                           strides_of(q_strides), strides_of(k_strides), strides_of(v_strides),
+                           strides_of(dout_strides), strides_of(dq_strides), B, S, H, scale,
+                           (cudaStream_t)stream)))
+}
+
+int flash_mla_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  void* lse, const long long* q_strides, const long long* k_strides,
+                  const long long* v_strides, const long long* out_strides, int B, int S, int H,
+                  int Dqk, int Dv, int causal, float scale, void* stream) {
+  DISPATCH_MLA(Dqk, Dv, causal,
+               (int)(launch_fwd<kDqk, kDv, flash_mla_fwd_kernel<kDqk, kDv, kCausal>>(
+                   (const bf16*)q, (const bf16*)k,
+                   (const bf16*)v, (const float*)bias, (bf16*)out, (float*)lse,
+                   strides_of(q_strides), strides_of(k_strides), strides_of(v_strides),
+                   strides_of(out_strides), B, S, H, scale, (cudaStream_t)stream)))
+}
+
+int flash_mla_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias,
+                       const void* lse, const void* delta, const void* dout, void* dk, void* dv,
+                       const long long* q_strides, const long long* k_strides,
+                       const long long* v_strides, const long long* dout_strides,
+                       const long long* dk_strides, const long long* dv_strides, int B, int S,
+                       int H, int Dqk, int Dv, int causal, float scale, void* stream) {
+  DISPATCH_MLA(Dqk, Dv, causal,
+               (int)(launch_bwd_dkdv<kDqk, kDv, flash_mla_bwd_dkdv_kernel<kDqk, kDv, kCausal>>(
+                   (const bf16*)q,
+                   (const bf16*)k, (const bf16*)v, (const float*)bias, (const float*)lse,
+                   (const float*)delta, (const bf16*)dout, (bf16*)dk, (bf16*)dv,
+                   strides_of(q_strides), strides_of(k_strides), strides_of(v_strides),
+                   strides_of(dout_strides), strides_of(dk_strides), strides_of(dv_strides), B,
+                   S, H, scale, (cudaStream_t)stream)))
+}
+
+int flash_mla_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
+                     const void* lse, const void* delta, const void* dout, void* dq,
+                     const long long* q_strides, const long long* k_strides,
+                     const long long* v_strides, const long long* dout_strides,
+                     const long long* dq_strides, int B, int S, int H, int Dqk, int Dv,
+                     int causal, float scale, void* stream) {
+  DISPATCH_MLA(Dqk, Dv, causal,
+               (int)(launch_bwd_dq<kDqk, kDv, flash_mla_bwd_dq_kernel<kDqk, kDv, kCausal>>(
+                   (const bf16*)q,
+                   (const bf16*)k, (const bf16*)v, (const float*)bias, (const float*)lse,
+                   (const float*)delta, (const bf16*)dout, (bf16*)dq, strides_of(q_strides),
+                   strides_of(k_strides), strides_of(v_strides), strides_of(dout_strides),
+                   strides_of(dq_strides), B, S, H, scale, (cudaStream_t)stream)))
 }
 
 }  // extern "C"

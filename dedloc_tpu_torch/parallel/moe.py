@@ -1,4 +1,6 @@
-"""Switch-style mixture-of-experts FFN (top-1 routing), in PyTorch.
+"""Mixture-of-experts FFNs, in PyTorch: the Switch layer (top-1 routing,
+with a capacity) and, after it, the DeepSeek-V3 layer (top-k sigmoid
+routing, dropless; ``route_topk`` and ``routed_experts``).
 
 Port of ``dedloc_tpu/parallel/moe.py``. The numerics follow the JAX layer:
 
@@ -52,6 +54,7 @@ from dedloc_tpu_torch.parallel.mesh import (
     copy_to,
     psum,
 )
+from dedloc_tpu_torch.telemetry.steps import region
 from dedloc_tpu_torch.utils.device import divide
 
 Params = Dict[str, torch.Tensor]
@@ -268,3 +271,148 @@ def moe_ffn_dense(params: Params, x: torch.Tensor, cfg: MoEConfig,
     expert_out = experts(params, expert_in, cfg.dtype)
     y = torch.einsum("tec,ech->th", combine_mask.to(cfg.dtype), expert_out)
     return y.to(x.dtype), r.aux
+
+
+# ------------------------------------------------- top-k sigmoid, dropless
+#
+# The DeepSeek-V3 expert layer (arXiv 2412.19437 §2.1.2; ``models/
+# deepseek_v3.py``): a sigmoid router over all ``E`` experts, the top-k of
+# the scores plus a correction bias that only selects (it takes no
+# gradient and does not enter the gates), the selected scores normalised to
+# sum 1 and scaled, and no capacity: every (token, expert) pair is
+# computed. A layer that holds experts ``[first, first + n)`` of an expert
+# axis routes over all ``E`` and computes its own experts' part of the
+# output; on one card it runs without the axis's exchange.
+#
+# Dispatch keeps everything on the device and every shape fixed: the ``T *
+# k`` pairs are sorted by held expert (pairs of experts held elsewhere
+# last), the group sizes and their offsets are device tensors, and the
+# experts run as two grouped products (``torch._grouped_mm``) over the
+# ``T * k`` rows, of which the first ``offs[-1]`` are real; the rest are
+# zeroed, so no host read sizes anything.
+
+
+class TopKRouting(NamedTuple):
+    """One call's routing: the sigmoid ``scores [T, E]`` (fp32), the
+    selected ``experts [T, k]``, their ``gates [T, k]`` (fp32, normalised
+    and scaled) and ``loads [E]``, the pairs each expert received (fp32,
+    exact below 2^24)."""
+
+    scores: torch.Tensor
+    experts: torch.Tensor
+    gates: torch.Tensor
+    loads: torch.Tensor
+
+
+def route_topk(router: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               top_k: int, scaling: float) -> TopKRouting:
+    """``noaux_tc`` routing of ``x [T, H]`` by ``router [E, H]`` (fp32, TF32
+    refused as for the Switch router) and the correction ``bias [E]``."""
+    check_ieee_fp32(x.device)
+    scores = torch.sigmoid(x.float() @ router.float().t())
+    experts = torch.topk(scores.detach() + bias.detach().float(), top_k, dim=-1).indices
+    picked = scores.gather(-1, experts)
+    gates = picked / picked.sum(-1, keepdim=True) * scaling
+    loads = torch.zeros(scores.shape[1], device=x.device).scatter_add_(
+        0, experts.reshape(-1), torch.ones(experts.numel(), device=x.device))
+    return TopKRouting(scores, experts, gates, loads)
+
+
+def sequence_balance(r: TopKRouting, rows: int) -> torch.Tensor:
+    """The sequence-wise balance loss ``sum_i f_i P_i`` (arXiv 2412.19437
+    eq. 17-20) averaged over the ``rows`` sequences of the call: ``f_i`` is
+    expert i's share of the row's selections times ``E / k`` (no gradient;
+    the selections are the routed ones), ``P_i`` the row's mean of the
+    scores normalised over the experts."""
+    t, e = r.scores.shape
+    k = r.experts.shape[1]
+    per_row = r.experts.reshape(rows, -1)
+    counts = torch.zeros(rows, e, device=per_row.device).scatter_add_(
+        1, per_row, torch.ones(per_row.shape, device=per_row.device))
+    f = counts * (e / (k * (t // rows)))
+    p = (r.scores / r.scores.sum(-1, keepdim=True)).reshape(rows, t // rows, e).mean(1)
+    return (f * p).sum(-1).mean()
+
+
+def bias_update(bias: torch.Tensor, loads: torch.Tensor, speed: float) -> None:
+    """``b_i += speed * sign(mean load - load_i)`` in place (arXiv
+    2412.19437 §2.1.2), from a step's loads summed over its micro-batches."""
+    bias.add_(speed * torch.sign(loads.mean(-1, keepdim=True) - loads))
+
+
+class Pairs(NamedTuple):
+    """The ``T * k`` (token, expert) pairs of one call sorted by held expert:
+    ``order`` (pair index of each sorted row), ``offs`` (int32 end of each
+    held expert's rows) and ``held [T, k]`` (the pair's expert is held
+    here)."""
+
+    order: torch.Tensor
+    offs: torch.Tensor
+    held: torch.Tensor
+
+
+def sort_pairs(experts: torch.Tensor, first: int, n: int) -> Pairs:
+    local = experts - first
+    held = (local >= 0) & (local < n)
+    key = torch.where(held, local, torch.full_like(local, n)).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    sizes = torch.zeros(n + 1, dtype=torch.int32, device=key.device).scatter_add_(
+        0, key, torch.ones(key.shape, dtype=torch.int32, device=key.device))
+    return Pairs(order, torch.cumsum(sizes[:n], 0, dtype=torch.int32), held)
+
+
+def _real_rows(rows: int, offs: torch.Tensor) -> torch.Tensor:
+    return (torch.arange(rows, device=offs.device) < offs[-1])[:, None]
+
+
+class _GroupedMM(torch.autograd.Function):
+    """``y[r] = x[r] @ w[g]`` for the rows ``r`` of group ``g`` (``offs``:
+    the int32 end of each group), zero past the last group, with its
+    gradients: ``dx`` by the transposed groups, ``dw[g] = x_g^T dy_g``."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        real = _real_rows(x.shape[0], offs)
+        return torch.where(real, torch._grouped_mm(x, w, offs=offs), 0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            real = _real_rows(x.shape[0], offs)
+            dx = torch.where(real, torch._grouped_mm(dy, w.transpose(-1, -2), offs=offs), 0)
+        if ctx.needs_input_grad[1]:
+            dw = torch._grouped_mm(x.t(), dy, offs=offs)
+        return dx, dw, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """``[M, K] x [G, K, N] -> [M, N]`` over the row groups ``offs``."""
+    return _GroupedMM.apply(x, w, offs)
+
+
+def routed_experts(x: torch.Tensor, r: TopKRouting, gate_up: torch.Tensor,
+                   down: torch.Tensor, first: int, dtype) -> torch.Tensor:
+    """``[T, H] -> [T, H]`` (fp32): the held experts' SwiGLU outputs of each
+    token's pairs, weighted by their gates, for the experts ``[first, first
+    + n)`` whose stacked weights ``gate_up [n, H, 2F]`` (gate, then up) and
+    ``down [n, F, H]`` are given."""
+    t, k = r.experts.shape
+    n, f = down.shape[0], down.shape[1]
+    with region("dispatch"):
+        pairs = sort_pairs(r.experts, first, n)
+        rows = x.to(dtype).index_select(0, pairs.order // k)  # [T * k, H]
+    with region("experts"):
+        h = grouped_mm(rows, gate_up.to(dtype), pairs.offs)
+        act = (F.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+        out = grouped_mm(act, down.to(dtype), pairs.offs)  # [T * k, H]
+    with region("combine"):
+        inverse = torch.empty_like(pairs.order).scatter_(
+            0, pairs.order, torch.arange(pairs.order.numel(), device=x.device))
+        per_pair = out.index_select(0, inverse).view(t, k, -1)
+        weight = (r.gates * pairs.held).to(dtype)
+        y = torch.bmm(weight[:, None, :], per_pair)[:, 0]
+    return y.float()

@@ -61,15 +61,29 @@ def build_model(
     pipe_microbatches: int = 0,
     moe_mesh=None,
     mesh=None,
-) -> Tuple[AlbertConfig, AlbertForPreTraining]:
+    moe_experts_held: int = 0,
+    expert_rank: int = 0,
+    overrides: Optional[Dict] = None,
+):
     """(config, model with random weights drawn from ``seed``) on ``device``
     (the card by default; ``"meta"`` gives shapes without storage). The MoE
     overrides and the mesh arguments apply as in the JAX builder, plus
     ``mesh`` (the slice, whose ``model`` axis is tensor parallelism; see
     ``models/albert.py``). On a mesh the weights are drawn whole, the same
     on every rank, and cut to this rank's blocks by the TP/EP rules
-    (``parallel/sharding.py``)."""
+    (``parallel/sharding.py``).
+
+    A DeepSeek-V3 size (``moonlight-16b-a3b``, its twin
+    ``deepseek-v3-tiny``; ``models/deepseek_v3.py``) builds that causal LM,
+    holding ``moe_experts_held`` of its routed experts (0: all) as rank
+    ``expert_rank`` of an expert axis; ``overrides`` sets any other field
+    of its config. Its weights are drawn on ``device`` itself."""
+    from dedloc_tpu_torch.models import deepseek_v3
+
     dev = resolve_device(device)
+    if deepseek_v3.is_deepseek(model_size):
+        return _build_deepseek(model_size, dev, seed, remat_policy, attention_impl,
+                               vocab_size, moe_experts_held, expert_rank, overrides)
     overrides = {}
     for key, value in (("ring_mesh", ring_mesh), ("pipe_mesh", pipe_mesh),
                        ("moe_mesh", moe_mesh), ("mesh", mesh)):
@@ -101,6 +115,28 @@ def build_model(
 
         shard_module(model, mesh, rules_for(mesh))
     return cfg, model.to(dev)
+
+
+def _build_deepseek(model_size, dev, seed, remat_policy, attention_impl, vocab_size,
+                    experts_held, expert_rank, overrides):
+    from dedloc_tpu_torch.models.deepseek_v3 import (
+        DeepseekV3Config, DeepseekV3ForCausalLM, init_weights as init_deepseek)
+
+    if attention_impl not in ("", "flash") or remat_policy:
+        raise ValueError(f"{model_size} runs flash attention under its own remat "
+                         "(each layer recomputed, flash's out and lse kept)")
+    fields = dict(experts_held=experts_held, expert_rank=expert_rank)
+    if vocab_size:
+        fields["vocab_size"] = vocab_size
+    fields.update(overrides or {})
+    cfg = DeepseekV3Config.named(model_size, **fields)
+    with torch.device("meta"):
+        model = DeepseekV3ForCausalLM(cfg)
+    if dev.type == "meta":
+        return cfg, model
+    model = model.to_empty(device=dev)
+    init_deepseek(model, torch.Generator(device=dev).manual_seed(seed))
+    return cfg, model
 
 
 def single_device_attention_impl(impl: str) -> str:
@@ -258,12 +294,21 @@ def configure_role_telemetry(args, public_key: bytes):
 
 def build_loss_fn(model: AlbertForPreTraining) -> Callable:
     """``loss_fn(params, batch, rng) -> (loss, metrics)``, the model applied
-    with ``params`` (a name -> tensor dict). Gathered masked-position loss
+    with ``params`` (a name -> tensor dict). A DeepSeek-V3 model gives its
+    causal-LM loss plus the balance loss, with the step's expert loads
+    among the metrics (``models/deepseek_v3.py``). Gathered masked-position loss
     when the batch carries ``mlm_positions``; dense per-position otherwise.
     With an MoE config the Switch load-balancing aux loss is added at
     ``cfg.moe_aux_weight`` and reported as ``moe_aux``. ``rng`` is accepted
     for the JAX signature: the recipe has no dropout. On a slice mesh
     (``cfg.mesh``): ``_slice_loss_fn``."""
+    from dedloc_tpu_torch.models.deepseek_v3 import DeepseekV3ForCausalLM
+
+    if isinstance(model, DeepseekV3ForCausalLM):
+        def causal_lm_loss(params, batch, rng: Optional[torch.Generator] = None):
+            return functional_call(model, params, (batch["input_ids"], batch["labels"]))
+
+        return causal_lm_loss
     moe = model.cfg.moe_experts > 0
     mesh = model.cfg.mesh
     if mesh is not None and mesh.size > 1:
@@ -390,8 +435,10 @@ def synthetic_mlm_batches(
 
 
 def loss_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
-    """The batch keys the loss consumes (the gathered or the dense MLM
-    layout)."""
+    """The batch keys the loss consumes (the packed causal-LM layout, or the
+    gathered or the dense MLM layout)."""
+    if "labels" in batch and "sop_labels" not in batch:
+        return ("input_ids", "labels")
     if "mlm_positions" in batch:
         return ("input_ids", "attention_mask", "token_type_ids",
                 "mlm_positions", "mlm_label_ids", "mlm_weights", "sop_labels")

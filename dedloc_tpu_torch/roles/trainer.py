@@ -14,6 +14,20 @@ tokenized text mix (``--training.streaming_files``). The Switch-MoE
 variant runs with ``--training.moe_experts`` (and
 ``--training.moe_capacity_factor``, ``--training.moe_aux_weight``).
 
+``--training.model_size moonlight-16b-a3b`` (or its test twin
+``deepseek-v3-tiny``) trains the DeepSeek-V3 causal LM
+(``models/deepseek_v3.py``) on packed causal-LM batches
+(``data/packed.py``), one expert-parallel rank per process: the rank
+``--training.mesh_device_offset`` of an expert axis of
+``--training.mesh_expert_devices``, or holding
+``--training.moe_experts_held`` experts, with no mesh
+(``--training.layers_held``: the model cut to its first layers, the final
+norm and the head on the last of them). Its batches are synthetic packed
+documents; ``--training.streaming_files`` is refused. Each router's
+correction bias moves after every apply (the flat apply's ``post_apply``)
+from the loads of the step's micro-batches, and the held experts' pairs go
+to the telemetry registry at the boundary's loss read.
+
     python -m dedloc_tpu_torch.roles.trainer --dht.experiment_prefix run \\
         --optimizer.target_batch_size 48 --training.per_device_batch_size 12
 
@@ -49,6 +63,8 @@ from dedloc_tpu_torch.collaborative.optimizer import (
 )
 from dedloc_tpu_torch.core.config import CollaborationArguments, parse_config
 from dedloc_tpu_torch.data.mlm import max_predictions_for
+from dedloc_tpu_torch.data.packed import packed_lm_batches
+from dedloc_tpu_torch.models import deepseek_v3
 from dedloc_tpu_torch.data.streaming import peer_shuffle_seed
 from dedloc_tpu_torch.ops import flash_attention, fused_ln
 from dedloc_tpu_torch.collaborative.slice import Slice
@@ -91,6 +107,18 @@ def slice_axes(args: CollaborationArguments):
     """The slice mesh's (axis names, shape) from the flags, with the JAX
     trainer's refusals; None for a one-device peer."""
     tr = args.training
+    if deepseek_v3.is_deepseek(tr.model_size):
+        if tr.streaming_files:
+            raise ValueError(f"{tr.model_size} trains on synthetic packed documents "
+                             "(data/packed.py); --training.streaming_files is not read")
+        if (tr.mesh_devices > 1 or tr.mesh_seq_devices > 1 or tr.mesh_model_devices > 1
+                or tr.mesh_pipe_devices > 1 or tr.zero_sharding):
+            raise ValueError(
+                f"{tr.model_size} runs one expert-parallel rank per process, with "
+                "no slice mesh: set --training.mesh_expert_devices (the axis) and "
+                "--training.mesh_device_offset (this rank), or "
+                "--training.moe_experts_held")
+        return None
     if tr.mesh_devices > 1:
         sp = max(1, tr.mesh_seq_devices)
         tp = max(1, tr.mesh_model_devices)
@@ -156,6 +184,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     authorizer, authority_public_key = (build_authorizer(args) if leader
                                         else (None, None))
     on = lambda name: mesh if mesh is not None and name in mesh.shape else None
+    deepseek = deepseek_v3.is_deepseek(tr.model_size)
+    held, rank = expert_share(tr) if deepseek else (0, 0)
     cfg, model = build_model(tr.model_size, tr.remat_policy, tr.attention_impl,
                              tr.vocab_size, device=device, seed=tr.seed,
                              moe_experts=tr.moe_experts,
@@ -163,7 +193,14 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                              moe_aux_weight=tr.moe_aux_weight,
                              ring_mesh=on("seq"), pipe_mesh=on("pipe"),
                              pipe_microbatches=tr.pipe_microbatches,
-                             moe_mesh=on("expert"), mesh=mesh)
+                             moe_mesh=on("expert"), mesh=mesh,
+                             moe_experts_held=held, expert_rank=rank,
+                             overrides=({"num_hidden_layers": tr.layers_held}
+                                        if deepseek and tr.layers_held else None))
+    if deepseek:
+        logger.info(f"{tr.model_size}: rank {rank} of the expert axis, experts "
+                    f"[{cfg.first_expert}, {cfg.first_expert + cfg.held}) of "
+                    f"{cfg.n_routed_experts}")
     tx = build_optimizer(args)
     dht = tele = None
     tele_close = lambda: None
@@ -213,6 +250,18 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         # from disk continues its round ids from the checkpoint
         resumed_local_step = int(meta.get("local_step", step))
         logger.info(f"resumed from local checkpoint at step {step}")
+
+    # the DeepSeek-V3 routers' loads, summed over the micro-batches until
+    # the apply moves each correction bias by them (post_apply)
+    loads_dev = held_dev = post_apply = None
+    if deepseek:
+        loads_dev = torch.zeros(cfg.moe_layers, cfg.n_routed_experts, device=device)
+        held_dev = torch.zeros(cfg.moe_layers, cfg.held, device=device)
+
+        def post_apply(new_state: TrainState) -> TrainState:
+            model.bias_update(loads_dev)
+            loads_dev.zero_()
+            return new_state
 
     opt = CollaborativeOptimizer(
         tx,
@@ -266,6 +315,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         mesh=mesh,
         opt_state_sharding=opt_sharding,
         param_sharding=param_sharding,
+        post_apply=post_apply,
         authorizer=authorizer,
         authority_public_key=authority_public_key,
         verbose=True,
@@ -297,8 +347,9 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     perf = PerfStats()
     recorder = StepRecorder(
         telemetry=tele,
-        model_tflops_per_sample=albert_tflops_per_sample(
-            cfg, seq, max_predictions_for(seq)
+        model_tflops_per_sample=(
+            deepseek_v3.flops_per_token(cfg, seq) * seq / 1e12 if deepseek
+            else albert_tflops_per_sample(cfg, seq, max_predictions_for(seq))
         ),
         peak_tflops=chip_peak_tflops() if device.type == "cuda" else 0.0,
     )
@@ -327,7 +378,13 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                             state.params, grad_acc, n_acc, batch
                         )
                     loss_sum_dev = loss_sum_dev + metrics["loss"]
-                    mlm_sum_dev = mlm_sum_dev + metrics["mlm_loss"]
+                    mlm_sum_dev = mlm_sum_dev + metrics[
+                        "lm_loss" if deepseek else "mlm_loss"]
+                    if deepseek:
+                        loads = metrics["expert_loads"]
+                        loads_dev.add_(loads)
+                        held_dev.add_(loads[:, cfg.first_expert:
+                                            cfg.first_expert + cfg.held])
                     mini_steps += 1
                 if srec is not None:
                     # recording only: wait for the kernels so fwd_bwd
@@ -350,6 +407,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
             if stepped:
                 loss_sum = float(loss_sum_dev)  # the one sync per global step
                 mlm_sum = float(mlm_sum_dev)
+                if deepseek:
+                    _record_expert_loads(tele, held_dev)
                 loss_sum_dev = torch.zeros([], device=device)
                 mlm_sum_dev = torch.zeros([], device=device)
                 opt.report_loss(loss_sum / max(mini_steps, 1))
@@ -420,6 +479,36 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         if mesh is not None:
             dist.destroy_process_group()
     return state
+
+
+def expert_share(tr) -> tuple:
+    """(experts held, rank) of a DeepSeek-V3 trainer: ``moe_experts_held``
+    or the expert axis's share (all of them with neither), the rank being
+    ``mesh_device_offset``."""
+    n_routed = deepseek_v3.DeepseekV3Config.named(tr.model_size).n_routed_experts
+    held = tr.moe_experts_held
+    if not held and tr.mesh_expert_devices > 1:
+        if n_routed % tr.mesh_expert_devices:
+            raise ValueError(f"{n_routed} experts do not divide over "
+                             f"mesh_expert_devices ({tr.mesh_expert_devices})")
+        held = n_routed // tr.mesh_expert_devices
+    if held and (n_routed % held or (tr.mesh_device_offset + 1) * held > n_routed):
+        raise ValueError(f"rank {tr.mesh_device_offset} holding {held} of "
+                         f"{n_routed} experts is not a block of the axis")
+    return held, (tr.mesh_device_offset if held else 0)
+
+
+def _record_expert_loads(tele, held_dev: torch.Tensor) -> None:
+    """The held experts' (token, expert) pairs since the last read, ``[L_moe,
+    n]``, into the telemetry registry (an event with the counts and the
+    hottest expert's pairs over the mean as a gauge); the counter restarts."""
+    counts = held_dev.cpu()
+    held_dev.zero_()
+    if tele is None:
+        return
+    mean = float(counts.mean())
+    tele.gauge("moe.expert_load_max").set(float(counts.max()) / mean if mean else 0.0)
+    tele.event("moe.expert_loads", pairs=counts.tolist())
 
 
 def _shard_state(state: TrainState, mesh, tx, zero: bool):
@@ -548,6 +637,10 @@ def _make_batches(args: CollaborationArguments, cfg, public_key: bytes,
     shuffling); numpy batches, the JAX trainer's for the same inputs."""
     seed = peer_shuffle_seed(public_key)  # per-peer independent shuffling
     batch_size = slice_batch or args.training.per_device_batch_size
+    if deepseek_v3.is_deepseek(args.training.model_size):
+        return packed_lm_batches(cfg.vocab_size, batch_size,
+                                 min(args.training.seq_length,
+                                     cfg.max_position_embeddings), seed)
     if args.training.streaming_files:
         # sahajbert-style streaming mode (dataset_streaming.py capability):
         # weighted lazy mix + per-peer shuffle buffer + on-the-fly tokenize

@@ -23,8 +23,7 @@ COPIES = (
                                          "manifest", "store")]
     + [f"collaborative/{n}.py" for n in ("__init__", "error_feedback", "metrics",
                                          "progress")]
-    + [f"core/{n}.py" for n in ("__init__", "auth", "serialization", "timeutils",
-                                "config")]
+    + [f"core/{n}.py" for n in ("__init__", "auth", "serialization", "timeutils")]
     + [f"telemetry/{n}.py" for n in ("__init__", "events", "health", "ledger",
                                      "links", "registry", "watch")]
     + ["testing/__init__.py", "testing/faults.py"]
@@ -155,7 +154,20 @@ _CLOUD = (
     (None, "class GcloudTPUProvider(_CliProvider):", "class AwsEc2Provider(_CliProvider):",
      _GCE_GPU + "\n\nclass AwsEc2Provider(_CliProvider):"),
 )
-ADAPTED = {"roles/coordinator.py": _NO_DEVICE, "roles/dht_node.py": _NO_DEVICE,
+# the port's trainer also runs the DeepSeek-V3 family, one expert-parallel
+# rank per process, whose held experts the JAX package has no flag for
+_CONFIG = (
+    ("    moe_aux_weight: float = 0.01",
+     "    moe_aux_weight: float = 0.01\n"
+     "    # the deepseek_v3 family (--training.model_size moonlight-16b-a3b):\n"
+     "    # this rank holds routed experts [r * n, r * n + n), r the\n"
+     "    # mesh_device_offset; 0 takes n = n_routed / mesh_expert_devices\n"
+     "    moe_experts_held: int = 0\n"
+     "    # ... cut to its first layers_held layers, the final norm and the head\n"
+     "    # on the last of them (0: the whole depth)\n"
+     "    layers_held: int = 0"),
+)
+ADAPTED = {"core/config.py": _CONFIG, "roles/coordinator.py": _NO_DEVICE, "roles/dht_node.py": _NO_DEVICE,
            "roles/gateway.py": _NO_DEVICE, "roles/fleet.py": _FLEET,
            "roles/cloud.py": _CLOUD}
 
@@ -285,3 +297,20 @@ def test_record_schemas_equal_the_reference(module, model):
     ours = getattr(importlib.import_module(f"dedloc_tpu_torch.{module}"), model)
     theirs = getattr(importlib.import_module(f"dedloc_tpu.{module}"), model)
     assert ours.model_json_schema() == theirs.model_json_schema()
+
+
+# the port's own plain references (not copies): plain torch, so they import
+# nothing of the port's kernels, nothing of the port and nothing of JAX
+PLAIN_REFERENCES = ("testing/plain_deepseek_v3.py",)
+
+
+@pytest.mark.parametrize("rel", PLAIN_REFERENCES)
+def test_plain_reference_imports_only_torch(rel):
+    tree = ast.parse((REPO / "dedloc_tpu_torch" / rel).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+    assert roots <= {"__future__", "math", "typing", "torch"}, roots

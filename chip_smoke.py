@@ -26,8 +26,13 @@ Phases (any failure exits non-zero):
               plain versions 4 heads at a time), and one micro-step of a
               3-layer Moonlight-16B-A3B model at that shape with the launch
               counters reset just before (one launch of each kernel a
-              layer). The flash tolerance scales with each
-              sample's own max |ref|; the mean signed error toward |ref|
+              layer; the expert row kernels 2/2/1/3/1 an expert layer).
+              The expert layer's row kernels (gather, SwiGLU and its
+              backward, combine and its backward, the gather's backward)
+              at the cell's T = 16,384, k = 6, H = 2,048, F = 1,408 with
+              8 of 64 experts held: each against its plain version on the
+              live rows, timed beside its bytes. The flash tolerance
+              scales with each sample's own max |ref|; the mean signed error toward |ref|
               shows a bias that the tolerance would pass. Device time per
               call (CUDA-graph replays between CUDA events, median) of the
               kernel, the plain version and, where one exists, the one
@@ -602,6 +607,7 @@ def _mla_rows(gen, seed: int) -> list:
     layers, 8 experts held, 20,480 ids) at the cell's [2, 8192], the launch
     counters reset just before it: one launch of each kernel a layer (the
     recompute keeps flash's out and lse). One row per kernel."""
+    from dedloc_tpu_torch.ops import expert_rows as er
     from dedloc_tpu_torch.ops import flash_attention as fa
     from dedloc_tpu_torch.parallel.train_step import make_accumulate_step, zeros_like_grads
     from dedloc_tpu_torch.roles.common import build_loss_fn, build_model
@@ -670,21 +676,132 @@ def _mla_rows(gen, seed: int) -> list:
     ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     batch = {"input_ids": ids, "labels": torch.roll(ids, -1, 1)}
     wrappers = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
-    for w in wrappers:
+    for w in wrappers + er.WRAPPERS:
         w.launches = 0
     _acc, _n, metrics = step(params, zeros_like_grads(params), 0, batch)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
+    rows_launches = {w.__name__: w.launches for w in er.WRAPPERS}
     if not bool(torch.isfinite(metrics["loss"])):
         fail(f"Moonlight micro-step: loss {float(metrics['loss'])}")
     if set(launches.values()) != {layers}:
         fail(f"Moonlight micro-step at [{b}, {s}], {layers} layers: launches {launches}")
+    # an expert layer: gather, SwiGLU and combine in the forward and again
+    # in the recompute; the combine's, SwiGLU's and gather's (an ungated
+    # combine) backward
+    moe_layers = layers - cfg.first_k_dense_replace
+    want = dict(expert_gather=2, swiglu_rows=2, swiglu_rows_bwd=1, expert_combine=3,
+                expert_combine_bwd=1)
+    if rows_launches != {name: n * moe_layers for name, n in want.items()}:
+        fail(f"Moonlight micro-step: expert row kernels launched {rows_launches}")
+    launches.update(rows_launches)
     log(f"[kernels] Moonlight micro-step at [{b}, {s}], {layers} layers: launches "
         f"{launches}, loss {float(metrics['loss']):.4f}")
     del model, params, step, _acc, metrics
     counts = dict(launches=launches, launches_per_step=launches)
     for row in result:
         row["launch_counts"] = counts
+    return result
+
+
+# the Moonlight cell's expert layer on one rank: T = 2 x 8,192 tokens, k of
+# E experts, N held, hidden H, expert width F
+MOE_ROWS = dict(T=16384, K=6, E=64, N=8, H=2048, F=1408)
+ROWS_SRC = "dedloc_tpu_torch/ops/expert_rows.py"
+ROWS_KERNELS = dict(expert_gather="_gather_kernel", swiglu_rows="_swiglu_kernel",
+                    swiglu_rows_bwd="_swiglu_bwd_kernel", expert_combine="_combine_kernel",
+                    expert_combine_bwd="_combine_bwd_kernel",
+                    gather_bwd="_combine_kernel (no gates)")
+
+
+def expert_rows_rows(gen) -> list:
+    """The expert layer's row kernels at the Moonlight cell's shape with a
+    live share near 1/8 (each token's k experts uniform over the E, the
+    first N held): each against its plain version on the live rows, then
+    timed by CUDA-graph replay beside its bytes (each input byte the live
+    rows need read once, each output byte written once) and the plain
+    version's time (CUDA events: it reads the live count on the host). The
+    launches are the Moonlight micro-step's (``_mla_rows``)."""
+    from dedloc_tpu_torch.ops import expert_rows as er
+    from dedloc_tpu_torch.parallel.moe import sort_pairs
+
+    t, k, e, n, h, f = (MOE_ROWS[c] for c in "TKENHF")
+    experts = torch.rand(t, e, generator=gen, device="cuda").topk(k, dim=-1).indices
+    pairs = sort_pairs(experts, 0, n)
+    live = int(pairs.offs[-1])
+    tokens = int((experts < n).any(-1).sum())  # tokens with a held pair
+    log(f"[kernels] expert rows at T={t}, k={k}, H={h}, F={f}: {live} of {t * k} "
+        f"rows live ({live / (t * k):.4f}), {tokens} tokens")
+    x = torch.randn(t, h, generator=gen, device="cuda")
+    gates = torch.rand(t, k, generator=gen, device="cuda")
+    hh = torch.randn(t * k, 2 * f, generator=gen, device="cuda").bfloat16()
+    dact = torch.randn(t * k, f, generator=gen, device="cuda").bfloat16()
+    out = torch.randn(t * k, h, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(t, h, generator=gen, device="cuda")
+    order, offs = pairs.order, pairs.offs
+    rows, inverse = er.expert_gather(x, order, offs, k, torch.bfloat16)
+    rows_p, inverse_p = er.expert_gather_plain(x, order, offs, k, torch.bfloat16)
+    if not (torch.equal(inverse, inverse_p) and torch.equal(rows[:live], rows_p[:live])):
+        fail("expert gather differs from its plain version")
+    bf16_tol, fp32_tol = 2 ** -7, 1e-4  # of max |ref|
+    close = lambda name, got, want, tol: check_close(
+        f"expert rows {name}", got, want, tol * float(want.float().abs().max()), 0.0)
+    d_out, d_gates = er.expert_combine_bwd(out, inverse, offs, gates, dy)
+    d_out_p, d_gates_p = er.expert_combine_bwd_plain(out, inverse, offs, gates, dy)
+    errs = dict(
+        expert_gather=0.0,
+        swiglu_rows=close("swiglu", er.swiglu_rows(hh, offs)[:live],
+                          er.swiglu_rows_plain(hh, offs)[:live], bf16_tol),
+        swiglu_rows_bwd=close("swiglu bwd", er.swiglu_rows_bwd(hh, dact, offs)[:live],
+                              er.swiglu_rows_bwd_plain(hh, dact, offs)[:live], bf16_tol),
+        expert_combine=close("combine", er.expert_combine(out, inverse, offs, gates,
+                                                          torch.float32),
+                             er.expert_combine_plain(out, inverse, offs, gates,
+                                                     torch.float32), fp32_tol),
+        expert_combine_bwd=max(close("combine d_out", d_out[:live], d_out_p[:live],
+                                     bf16_tol),
+                               close("combine d_gates", d_gates, d_gates_p, fp32_tol)),
+        gather_bwd=close("gather bwd", er.expert_combine(out, inverse, offs, None,
+                                                         torch.float32),
+                         er.expert_combine_plain(out, inverse, offs, None, torch.float32),
+                         fp32_tol),
+    )
+    del rows_p, inverse_p, d_out_p, d_gates_p
+    index = t * k * (8 + 4)  # order read, inverse written (or read) once
+    calls = dict(
+        expert_gather=(lambda: er.expert_gather(x, order, offs, k, torch.bfloat16),
+                       lambda: er.expert_gather_plain(x, order, offs, k, torch.bfloat16),
+                       tokens * h * 4 + live * h * 2 + index),
+        swiglu_rows=(lambda: er.swiglu_rows(hh, offs),
+                     lambda: er.swiglu_rows_plain(hh, offs), live * f * (4 + 2)),
+        swiglu_rows_bwd=(lambda: er.swiglu_rows_bwd(hh, dact, offs),
+                         lambda: er.swiglu_rows_bwd_plain(hh, dact, offs),
+                         live * f * (4 + 2 + 4)),
+        expert_combine=(lambda: er.expert_combine(out, inverse, offs, gates, torch.float32),
+                        lambda: er.expert_combine_plain(out, inverse, offs, gates,
+                                                        torch.float32),
+                        live * h * 2 + t * h * 4 + t * k * (4 + 4)),
+        expert_combine_bwd=(lambda: er.expert_combine_bwd(out, inverse, offs, gates, dy),
+                            lambda: er.expert_combine_bwd_plain(out, inverse, offs, gates,
+                                                                dy),
+                            t * h * 4 + live * h * (2 + 2) + t * k * (4 + 4 + 4)),
+        gather_bwd=(lambda: er.expert_combine(out, inverse, offs, None, torch.float32),
+                    lambda: er.expert_combine_plain(out, inverse, offs, None,
+                                                    torch.float32),
+                    live * h * 2 + t * h * 4 + t * k * 4),
+    )
+    result = []
+    for name, (kernel, plain, n_bytes) in calls.items():
+        result.append(dict(
+            name=name, kernel=ROWS_KERNELS[name],
+            route="triton", source=ROWS_SRC, path="Moonlight expert layer",
+            replaces="none (the JAX package has no dropless expert layer)",
+            shape=[t, k, h, f, n], live_rows=live, live_share=live / (t * k),
+            err=(errs[name], None), tol="atol 2^-7 (bf16) or 1e-4 (fp32) x max |ref|",
+            ms=cuda_ms(kernel), plain_ms=event_ms(plain), plain_timing="CUDA events",
+            library_ms=None, bytes=n_bytes, **bound(n_bytes)))
+        log(f"  expert rows {name}: {result[-1]['ms']:.4f} ms (bound "
+            f"{result[-1]['bound_ms']:.4f}, plain {result[-1]['plain_ms']:.4f})")
     return result
 
 
@@ -745,6 +862,9 @@ def phase_kernels(seed: int) -> list:
     # a generator of its own, so that the cases after it draw what they drew
     # before it was added
     results += _mla_rows(torch.Generator(device="cuda").manual_seed(seed + 1), seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results += expert_rows_rows(torch.Generator(device="cuda").manual_seed(seed + 2))
     gc.collect()
     torch.cuda.empty_cache()
 

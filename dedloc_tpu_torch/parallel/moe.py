@@ -47,6 +47,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dedloc_tpu_torch.ops import expert_rows
 from dedloc_tpu_torch.parallel.mesh import (
     PartitionSpec as P,
     all_gather,
@@ -288,8 +289,10 @@ def moe_ffn_dense(params: Params, x: torch.Tensor, cfg: MoEConfig,
 # k`` pairs are sorted by held expert (pairs of experts held elsewhere
 # last), the group sizes and their offsets are device tensors, and the
 # experts run as two grouped products (``torch._grouped_mm``) over the
-# ``T * k`` rows, of which the first ``offs[-1]`` are real; the rest are
-# zeroed, so no host read sizes anything.
+# ``T * k`` rows, of which the first ``offs[-1]`` are live, so no host read
+# sizes anything. The gather, the SwiGLU and the combine around them
+# (``ops/expert_rows.py``) read the live count on the device and touch only
+# the live rows; no pass reads a row past it.
 
 
 class TopKRouting(NamedTuple):
@@ -342,13 +345,11 @@ def bias_update(bias: torch.Tensor, loads: torch.Tensor, speed: float) -> None:
 
 class Pairs(NamedTuple):
     """The ``T * k`` (token, expert) pairs of one call sorted by held expert:
-    ``order`` (pair index of each sorted row), ``offs`` (int32 end of each
-    held expert's rows) and ``held [T, k]`` (the pair's expert is held
-    here)."""
+    ``order`` (pair index of each sorted row) and ``offs`` (int32 end of
+    each held expert's rows; the pairs of experts held elsewhere follow)."""
 
     order: torch.Tensor
     offs: torch.Tensor
-    held: torch.Tensor
 
 
 def sort_pairs(experts: torch.Tensor, first: int, n: int) -> Pairs:
@@ -358,23 +359,19 @@ def sort_pairs(experts: torch.Tensor, first: int, n: int) -> Pairs:
     order = torch.argsort(key, stable=True)
     sizes = torch.zeros(n + 1, dtype=torch.int32, device=key.device).scatter_add_(
         0, key, torch.ones(key.shape, dtype=torch.int32, device=key.device))
-    return Pairs(order, torch.cumsum(sizes[:n], 0, dtype=torch.int32), held)
-
-
-def _real_rows(rows: int, offs: torch.Tensor) -> torch.Tensor:
-    return (torch.arange(rows, device=offs.device) < offs[-1])[:, None]
+    return Pairs(order, torch.cumsum(sizes[:n], 0, dtype=torch.int32))
 
 
 class _GroupedMM(torch.autograd.Function):
     """``y[r] = x[r] @ w[g]`` for the rows ``r`` of group ``g`` (``offs``:
-    the int32 end of each group), zero past the last group, with its
-    gradients: ``dx`` by the transposed groups, ``dw[g] = x_g^T dy_g``."""
+    the int32 end of each group), with its gradients: ``dx`` by the
+    transposed groups, ``dw[g] = x_g^T dy_g``. Rows past the last group are
+    left as the library leaves them: no consumer reads them."""
 
     @staticmethod
     def forward(ctx, x, w, offs):
         ctx.save_for_backward(x, w, offs)
-        real = _real_rows(x.shape[0], offs)
-        return torch.where(real, torch._grouped_mm(x, w, offs=offs), 0)
+        return torch._grouped_mm(x, w, offs=offs)
 
     @staticmethod
     def backward(ctx, dy):
@@ -382,8 +379,7 @@ class _GroupedMM(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            real = _real_rows(x.shape[0], offs)
-            dx = torch.where(real, torch._grouped_mm(dy, w.transpose(-1, -2), offs=offs), 0)
+            dx = torch._grouped_mm(dy, w.transpose(-1, -2), offs=offs)
         if ctx.needs_input_grad[1]:
             dw = torch._grouped_mm(x.t(), dy, offs=offs)
         return dx, dw, None
@@ -400,19 +396,14 @@ def routed_experts(x: torch.Tensor, r: TopKRouting, gate_up: torch.Tensor,
     token's pairs, weighted by their gates, for the experts ``[first, first
     + n)`` whose stacked weights ``gate_up [n, H, 2F]`` (gate, then up) and
     ``down [n, F, H]`` are given."""
-    t, k = r.experts.shape
-    n, f = down.shape[0], down.shape[1]
+    k = r.experts.shape[1]
+    n = down.shape[0]
     with region("dispatch"):
         pairs = sort_pairs(r.experts, first, n)
-        rows = x.to(dtype).index_select(0, pairs.order // k)  # [T * k, H]
+        rows, inverse = expert_rows.gather(x, pairs.order, pairs.offs, k, dtype)
     with region("experts"):
         h = grouped_mm(rows, gate_up.to(dtype), pairs.offs)
-        act = (F.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+        act = expert_rows.swiglu(h, pairs.offs)
         out = grouped_mm(act, down.to(dtype), pairs.offs)  # [T * k, H]
     with region("combine"):
-        inverse = torch.empty_like(pairs.order).scatter_(
-            0, pairs.order, torch.arange(pairs.order.numel(), device=x.device))
-        per_pair = out.index_select(0, inverse).view(t, k, -1)
-        weight = (r.gates * pairs.held).to(dtype)
-        y = torch.bmm(weight[:, None, :], per_pair)[:, 0]
-    return y.float()
+        return expert_rows.combine(out, r.gates, inverse, pairs.offs)

@@ -254,6 +254,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     # the DeepSeek-V3 routers' loads, summed over the micro-batches until
     # the apply moves each correction bias by them (post_apply)
     loads_dev = held_dev = post_apply = None
+    rows_given = 0
     if deepseek:
         loads_dev = torch.zeros(cfg.moe_layers, cfg.n_routed_experts, device=device)
         held_dev = torch.zeros(cfg.moe_layers, cfg.held, device=device)
@@ -385,6 +386,9 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                         loads_dev.add_(loads)
                         held_dev.add_(loads[:, cfg.first_expert:
                                             cfg.first_expert + cfg.held])
+                        # T * k sorted rows a layer: a host count of shapes
+                        rows_given += (batch["input_ids"].numel()
+                                       * cfg.num_experts_per_tok * cfg.moe_layers)
                     mini_steps += 1
                 if srec is not None:
                     # recording only: wait for the kernels so fwd_bwd
@@ -408,7 +412,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                 loss_sum = float(loss_sum_dev)  # the one sync per global step
                 mlm_sum = float(mlm_sum_dev)
                 if deepseek:
-                    _record_expert_loads(tele, held_dev)
+                    _record_expert_loads(tele, held_dev, rows_given)
+                    rows_given = 0
                 loss_sum_dev = torch.zeros([], device=device)
                 mlm_sum_dev = torch.zeros([], device=device)
                 opt.report_loss(loss_sum / max(mini_steps, 1))
@@ -498,17 +503,21 @@ def expert_share(tr) -> tuple:
     return held, (tr.mesh_device_offset if held else 0)
 
 
-def _record_expert_loads(tele, held_dev: torch.Tensor) -> None:
+def _record_expert_loads(tele, held_dev: torch.Tensor, rows_given: int) -> None:
     """The held experts' (token, expert) pairs since the last read, ``[L_moe,
-    n]``, into the telemetry registry (an event with the counts and the
-    hottest expert's pairs over the mean as a gauge); the counter restarts."""
-    counts = held_dev.cpu()
+    n]``, into the telemetry registry (an event with the counts; gauges: the
+    hottest expert's pairs over the mean, and ``moe.live_row_share``, the
+    held pairs over the ``rows_given`` sorted rows the expert layers were
+    given, the share of them the row kernels touch); the counter restarts."""
+    counts = held_dev.to("cpu", copy=True)  # a copy on the CPU too: zeroed next
     held_dev.zero_()
     if tele is None:
         return
     mean = float(counts.mean())
+    share = float(counts.sum()) / rows_given if rows_given else 0.0
     tele.gauge("moe.expert_load_max").set(float(counts.max()) / mean if mean else 0.0)
-    tele.event("moe.expert_loads", pairs=counts.tolist())
+    tele.gauge("moe.live_row_share").set(share)
+    tele.event("moe.expert_loads", pairs=counts.tolist(), live_row_share=share)
 
 
 def _shard_state(state: TrainState, mesh, tx, zero: bool):

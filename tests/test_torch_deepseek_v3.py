@@ -158,6 +158,156 @@ def test_every_token_to_one_expert_is_computed_and_none_dropped():
     torch.testing.assert_close(got, want, **TOL)
 
 
+class _MaskedGroupedMM(torch.autograd.Function):
+    """The grouped product as the layer ran it before the row kernels: the
+    rows past the last group zeroed after each product, forward and
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        real = (torch.arange(x.shape[0]) < offs[-1])[:, None]
+        return torch.where(real, torch._grouped_mm(x, w, offs=offs), 0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        real = (torch.arange(x.shape[0]) < offs[-1])[:, None]
+        dx = torch.where(real, torch._grouped_mm(dy.contiguous(), w.transpose(-1, -2),
+                                                 offs=offs), 0)
+        return dx, torch._grouped_mm(x.t(), dy.contiguous(), offs=offs), None
+
+
+def _masked_routed_experts(x, r, gate_up, down, first, dtype):
+    """The expert layer's eager formula over all T * k sorted rows: an
+    index_select gather, the masked grouped products, the SwiGLU in fp32,
+    the inverse index_select and the gate-weighted bmm (gates rounded to
+    ``dtype``)."""
+    t, k = r.experts.shape
+    n, f = down.shape[0], down.shape[1]
+    local = r.experts - first
+    held = (local >= 0) & (local < n)
+    pairs = moe.sort_pairs(r.experts, first, n)
+    rows = x.to(dtype).index_select(0, pairs.order // k)
+    h = _MaskedGroupedMM.apply(rows, gate_up.to(dtype), pairs.offs)
+    act = (torch.nn.functional.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+    out = _MaskedGroupedMM.apply(act, down.to(dtype), pairs.offs)
+    inverse = torch.empty_like(pairs.order).scatter_(0, pairs.order, torch.arange(t * k))
+    per_pair = out.index_select(0, inverse).view(t, k, -1)
+    weight = (r.gates * held).to(dtype)
+    return torch.bmm(weight[:, None, :], per_pair)[:, 0].float()
+
+
+# (routing, held block [first, first + n)) at k = 3 of 8 experts, T = 24:
+# no pair held (live 0); every pair held, n >= k (live T * k) and n < k
+# (live T * n: each token takes both held experts); a skewed routing (one
+# held expert favoured, the others random)
+ROUTINGS = {"none_held": (2, 2), "all_held": (0, 8), "all_held_few": (2, 2),
+            "skewed": (2, 4)}
+
+
+def _routing(name, seed=0):
+    """(x, routing with leaf gates, gate_up, down, first, live) of a layer
+    call whose held block is ``ROUTINGS[name]``."""
+    x, router, gate_up, down = _layer_inputs(seed)
+    e, t, k = router.shape[0], x.shape[0], 3
+    first, n = ROUTINGS[name]
+    bias = torch.randn(e, generator=torch.Generator().manual_seed(seed + 7)) * 0.1
+    if name == "none_held":
+        bias[first:first + n] = -100.0
+    elif name == "all_held_few":
+        bias[first:first + n] = 100.0
+    elif name == "skewed":
+        bias[first + 1] = 1.0
+    r = moe.route_topk(router, bias, x, k, 2.446)
+    r = r._replace(gates=r.gates.detach().requires_grad_(True))
+    live = int(((r.experts >= first) & (r.experts < first + n)).sum())
+    want = {"none_held": 0, "all_held": t * k, "all_held_few": t * min(k, n)}
+    assert live == want.get(name, live) and (name != "skewed" or 0 < live < t * k)
+    return (x.requires_grad_(True), r, gate_up[first:first + n].requires_grad_(True),
+            down[first:first + n].requires_grad_(True), first, live)
+
+
+@pytest.mark.parametrize("name", sorted(ROUTINGS))
+def test_routed_experts_match_the_masked_formula(name):
+    x, r, gate_up, down, first, _live = _routing(name)
+    leaves = (x, r.gates, gate_up, down)
+    got = moe.routed_experts(x, r, gate_up, down, first, torch.float32)
+    want = _masked_routed_experts(x, r, gate_up, down, first, torch.float32)
+    torch.testing.assert_close(got, want, **TOL)
+    dy = torch.randn(got.shape, generator=torch.Generator().manual_seed(5))
+    for leaf, a, b in zip(("x", "gates", "gate_up", "down"),
+                          torch.autograd.grad(got, leaves, dy),
+                          torch.autograd.grad(want, leaves, dy)):
+        torch.testing.assert_close(a, b, **TOL, msg=leaf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ROUTINGS))
+def test_the_row_passes_plain_versions_match_the_masked_formula(name, dtype):
+    from dedloc_tpu_torch.ops import expert_rows as er
+
+    x, r, _gate_up, _down, first, live = _routing(name)
+    x, gates = x.detach(), r.gates.detach()
+    (t, k), n = r.experts.shape, ROUTINGS[name][1]
+    pairs = moe.sort_pairs(r.experts, first, n)
+    assert int(pairs.offs[-1]) == live
+    g = torch.Generator().manual_seed(11)
+    # the gather: the live rows' tokens, and the inverse permutation
+    rows, inverse = er.expert_gather_plain(x, pairs.order, pairs.offs, k, dtype)
+    want_rows = x.to(dtype).index_select(0, pairs.order // k)
+    torch.testing.assert_close(rows[:live], want_rows[:live], rtol=0, atol=0)
+    assert not rows[live:].any()
+    torch.testing.assert_close(inverse.reshape(-1).long()[pairs.order],
+                               torch.arange(t * k), rtol=0, atol=0)
+    # the SwiGLU and its gradient: the eager fp32 formula, rounded alike
+    f = 8
+    h = torch.randn(t * k, 2 * f, generator=g).to(dtype).requires_grad_(True)
+    act = er.swiglu_rows_plain(h.detach(), pairs.offs)
+    want_act = (torch.nn.functional.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+    torch.testing.assert_close(act[:live], want_act[:live], rtol=0, atol=0)
+    dact = torch.randn(t * k, f, generator=g).to(dtype)
+    dh = er.swiglu_rows_bwd_plain(h.detach(), dact, pairs.offs)
+    want_dh, = torch.autograd.grad(want_act, h, dact)
+    torch.testing.assert_close(dh[:live], want_dh[:live])
+    assert not dh[live:].any()
+    # the combine and its gradients against the inverse gather and the bmm
+    # (fp32 gates: the same rounding in fp32, finer in bf16)
+    out = torch.randn(t * k, 16, generator=g).to(dtype).requires_grad_(True)
+    gl = gates.clone().requires_grad_(True)
+    held = (inverse < live).float()
+    per_pair = out.float().index_select(0, inverse.reshape(-1).long()).view(t, k, -1)
+    want_y = torch.bmm((gl * held)[:, None, :], per_pair)[:, 0]
+    y = er.expert_combine_plain(out.detach(), inverse, pairs.offs, gates, torch.float32)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(y, want_y, **TOL)
+    dy = torch.randn(t, 16, generator=g)
+    d_out, d_gates = er.expert_combine_bwd_plain(out.detach(), inverse, pairs.offs,
+                                                 gates, dy)
+    want_dout, want_dgates = torch.autograd.grad(want_y, (out, gl), dy)
+    torch.testing.assert_close(d_gates, want_dgates, **TOL)
+    torch.testing.assert_close(d_out.float(), want_dout.float(), **tol)
+    # the gather's gradient: the ungated combine, each token's held rows summed
+    dx = er.expert_combine_plain(d_out, inverse, pairs.offs, None, torch.float32)
+    want_dx = torch.zeros(t, 16).index_add(
+        0, pairs.order[:live] // k, d_out[:live].float())
+    torch.testing.assert_close(dx, want_dx, **TOL)
+
+
+def test_the_trainer_reads_the_live_row_share_from_the_loads():
+    from dedloc_tpu_torch.roles.trainer import _record_expert_loads
+    from dedloc_tpu_torch.telemetry.registry import Telemetry
+
+    tele = Telemetry()
+    held = torch.tensor([[6.0, 2.0], [0.0, 4.0]])  # two layers, two held experts
+    _record_expert_loads(tele, held, rows_given=96)
+    assert tele.gauges["moe.live_row_share"].value == 12 / 96
+    assert tele.gauges["moe.expert_load_max"].value == 6 / 3
+    event = tele.events[-1]
+    assert event["event"] == "moe.expert_loads" and event["live_row_share"] == 12 / 96
+    assert event["pairs"] == [[6.0, 2.0], [0.0, 4.0]] and not held.any()
+
+
 def test_the_balance_loss_matches_a_hand_count():
     scores = torch.tensor([[0.9, 0.1, 0.5, 0.2], [0.3, 0.8, 0.6, 0.4],
                            [0.7, 0.2, 0.1, 0.9], [0.5, 0.5, 0.4, 0.1]])

@@ -1415,8 +1415,7 @@ COLLAB_MODEL_FLAGS = ["--training.model_size", "large",
 COLLAB_STEPS = 4  # averaged global steps to wait for (at least 3 are checked)
 COLLAB_MIN_STEPS = 3
 COLLAB_DEADLINE_S = 240.0
-FALLBACKS = ("falling back to the host flatten path",
-             "keeping the per-leaf guarded apply")
+FALLBACKS = ("falling back to the host flatten path",)
 
 
 def collab_card_checks(seed: int) -> dict:
@@ -1663,7 +1662,7 @@ def collab_peers(seed: int, total: int) -> dict:
            "--training.max_local_steps", "200",
            "--training.save_steps", "1", "--training.save_total_limit", "0",
            "--optimizer.target_batch_size", "48",
-           "--optimizer.device_flat", "true", "--optimizer.flat_apply", "true",
+           "--optimizer.device_flat", "true",
            "--optimizer.error_feedback", "true",
            "--averager.compression", "float16",
            # a fresher view of the partner's progress than the 3 s default,
@@ -2435,9 +2434,9 @@ def swav_cli(seed: int, work: str) -> dict:
            "--averager.averaging_expiration", "0.5",
            "--averager.min_refresh_period", "0.2",
            "--averager.default_refresh_period", "0.5",
-           # a lone peer takes the networked path (the flat apply) until its
-           # progress record's lifetime has passed, then applies per leaf
-           # with no round: keep the run inside that window
+           # a lone peer takes the networked path (the device-flat wire)
+           # until its progress record's lifetime has passed, then steps
+           # with no round; both apply flat. Keep the run inside that window
            "--averager.metadata_expiration", "300"]
     log(f"[swav] CLI peer: {' '.join(cmd[3:])}")
     t0 = time.perf_counter()
@@ -2914,7 +2913,7 @@ def moe_deployment(seed: int, work: str) -> dict:
                 "--training.save_steps", "1", "--training.save_total_limit", "0",
                 "--training.output_dir", pdir,
                 "--training.train_log_path", os.path.join(pdir, "train.jsonl"),
-                "--optimizer.device_flat", "true", "--optimizer.flat_apply", "true",
+                "--optimizer.device_flat", "true",
                 "--checkpoint.cache_dir", "none",
                 "--dht.listen_port", str(ports[peer]),
                 "--dht.initial_peers", addr("coordinator"), addr(other)],

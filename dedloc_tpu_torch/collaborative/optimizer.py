@@ -6,9 +6,12 @@ PyTorch. Gradients are dicts of fp32 tensors keyed by the port's parameter
 names; on the wire (the device-flat pipeline, the legacy host path, the
 shared state) every tensor carries the JAX package's name, shape and
 element order (``models/convert.py``), so a torch peer and a JAX peer
-average in the same rounds and serve each other's state. The apply is the
-guarded per-leaf step or the flat step (``parallel/train_step.py``), both
-sync-free; the NaN verdict is read at the next boundary.
+average in the same rounds and serve each other's state. Off a mesh every
+global step applies through the flat step (``make_flat_apply_step`` over
+the flat twin of the peer's optimizer, ``optim.flat.flat_twin``): alone or
+averaged, before or after the grace period, and on the local-apply
+fallback. The apply is sync-free; the NaN verdict is read at the next
+boundary.
 
 Semantics parity with hivemind.CollaborativeOptimizer as consumed by all
 three reference trainers (SURVEY.md §2.6, §3.1): accumulate gradients
@@ -30,7 +33,7 @@ With a slice ``mesh`` (``mesh_devices > 1``) this optimizer runs on the
 slice's rank 0 and drives the other ranks through ``collaborative/slice.py``:
 the boundary's gradients are summed and gathered to full tensors here, the
 averaged result goes back to every rank, which applies on its own blocks
-(the guarded per-leaf apply; the flat apply is off on a mesh, as in the JAX
+(the guarded per-leaf apply, the only apply on a slice, as in the JAX
 package), and shared state and adopted state cross as full tensors.
 """
 from __future__ import annotations
@@ -58,7 +61,9 @@ from dedloc_tpu_torch.telemetry import registry as telemetry
 from dedloc_tpu_torch.telemetry import steps
 from dedloc_tpu_torch.telemetry.registry import monotonic_clock
 from dedloc_tpu_torch.models.convert import from_jax_layout, grad_name, to_jax_layout
+from dedloc_tpu_torch.optim.flat import flat_twin
 from dedloc_tpu_torch.parallel.train_step import (
+    FlatLayout,
     TrainState,
     make_flat_apply_step,
     make_guarded_apply_step,
@@ -261,11 +266,6 @@ class CollaborativeOptimizer:
         # lossy wire format and the host codec becomes decode-only. Falls
         # back to the legacy per-leaf host path automatically when the
         # gradient tree is refused (non-float leaves).
-        flat_opt_factory: Optional[Callable] = None,  # (spec, params) ->
-        # optim.flat.FlatLamb or FlatLars: enables the FLAT apply — the averaged result
-        # goes to the card as ONE buffer and the whole optimizer update runs
-        # as segment reductions over it (make_flat_apply_step). None keeps
-        # the per-leaf guarded apply.
         ledger_claims: bool = True,  # contribution ledger
         # (telemetry/ledger.py): periodically publish this peer's signed
         # cumulative ContributionClaim DHT record off the progress-report
@@ -376,35 +376,34 @@ class CollaborativeOptimizer:
         self._created_at = get_dht_time()
         self.local_step = 0
         self.local_samples_accumulated = 0
-        self.mesh = mesh
-        self.opt_state_sharding = opt_state_sharding
-        self.param_sharding = param_sharding
         # post-update transform on the new state (e.g. SwAV prototype
         # re-normalization — NormalizePrototypesHook.on_update capability,
         # swav_hooks.py:55-92), applied to the new params before the
         # all-finite check of either apply
         self.post_apply = post_apply
-        # guarded apply: optimizer update + all-finite reduce +
-        # torch.where rollback — no pre-apply copy of (step, params,
+        # both applies fold the NaN guard in (an all-finite reduce +
+        # torch.where rollback): no pre-apply copy of (step, params,
         # opt_state), no host-synced finite check; the ok flag is read one
-        # boundary later (_check_apply_ok)
-        self._apply_fn = make_guarded_apply_step(
-            tx, mesh=mesh, opt_state_sharding=opt_state_sharding,
-            param_sharding=param_sharding, post_apply=post_apply,
-        )
+        # boundary later (_check_apply_ok). On a slice every rank applies
+        # the per-leaf guarded apply to its own blocks; off a mesh every
+        # global step takes the flat apply (_ensure_flat_apply)
+        self._apply_fn = None
+        if self._slice is not None:
+            self._apply_fn = make_guarded_apply_step(
+                tx, mesh=mesh, opt_state_sharding=opt_state_sharding,
+                param_sharding=param_sharding, post_apply=post_apply,
+            )
+        # (spec key, FlatLayout, flat apply) of the last gradient spec
+        self._flat_apply: Optional[Tuple[Any, FlatLayout, Callable]] = None
         # device-resident flat gradient pipeline (built lazily from the
         # first boundary's gradient tree; see the constructor docstring)
         self.device_flat = bool(device_flat)
-        self.flat_opt_factory = flat_opt_factory
         self._pipeline: Optional[DeviceFlatPipeline] = None
-        self._flat_apply_fn = None
-        self._flat_apply_spec = None
-        self._flat_apply_failed = False
-        # the apply the last global step took: "flat" or "leaf" (the
-        # per-leaf guarded apply, also the solo path's)
+        # the apply the last global step took: "flat" off a mesh, "leaf"
+        # (the per-leaf guarded apply) on a slice
         self.last_apply: Optional[str] = None
         self.last_group_size: Optional[int] = None
-        # (round_id, device ok scalar) of the most recent guarded apply:
+        # (round_id, device ok scalar) of the most recent apply:
         # fetched lazily at the NEXT boundary so the NaN verdict never
         # stalls the dispatch stream (the legacy host-synced check cost a
         # full device round-trip per global step)
@@ -1048,38 +1047,19 @@ class CollaborativeOptimizer:
         return self._pipeline
 
     def _ensure_flat_apply(self, state: TrainState, spec):
-        """The fused flat apply for ``spec``, or None (per-leaf guarded
-        apply) when no factory was wired, a sharded layout is in play, or
-        a previous build failed."""
-        if (
-            self.flat_opt_factory is None
-            or self._flat_apply_failed
-            or self.mesh is not None
-            or self.opt_state_sharding is not None
-            or self.param_sharding is not None
-        ):
-            return None
+        """(FlatLayout, flat apply) for the gradient ``spec``: the flat twin
+        of this peer's own optimizer (``optim.flat.flat_twin``), built once
+        per spec. A spec that does not match the params raises here."""
         key = [(name, tuple(shape)) for name, shape, _dtype in spec]
-        if self._flat_apply_fn is not None and self._flat_apply_spec == key:
-            return self._flat_apply_fn
-        try:
-            flat_tx = self.flat_opt_factory(spec, state.params)
-            self._flat_apply_fn = make_flat_apply_step(
-                flat_tx, spec, post_apply=self.post_apply
-            )
-            self._flat_apply_spec = key
-        except Exception as e:  # noqa: BLE001 — a flat-apply build failure
-            # must degrade to the per-leaf chain, never kill training
-            logger.warning(
-                f"flat apply unavailable ({e!r}); keeping the per-leaf "
-                "guarded apply"
-            )
-            self._flat_apply_failed = True
-            self._flat_apply_fn = None
-        return self._flat_apply_fn
+        if self._flat_apply is None or self._flat_apply[0] != key:
+            self._flat_apply = (key, FlatLayout(spec, state.params),
+                                make_flat_apply_step(
+                                    flat_twin(self.tx, spec, state.params),
+                                    spec, post_apply=self.post_apply))
+        return self._flat_apply[1:]
 
     def _check_apply_ok(self, final: bool = False) -> None:
-        """Read the PREVIOUS guarded apply's NaN verdict. Called at the
+        """Read the PREVIOUS apply's NaN verdict. Called at the
         next boundary (the flag has long settled — reading it then costs
         nothing) and once at shutdown (``final=True``); a rolled-back
         update is logged and counted one boundary late instead of paying a
@@ -1097,7 +1077,7 @@ class CollaborativeOptimizer:
         if rolled_back:
             # NaN guard (CollaborativeCallback.on_step_end semantics,
             # albert/run_trainer.py:134-137): the update was discarded
-            # inside the guarded apply
+            # inside the apply
             logger.warning(
                 f"{round_id}: non-finite params; update was rolled back"
             )
@@ -1328,34 +1308,33 @@ class CollaborativeOptimizer:
             # previous boundary's NaN verdict has settled by now — read it
             # without stalling this boundary's dispatch
             self._check_apply_ok()
-            # NaN guard lives INSIDE the apply (an all-finite reduce +
-            # torch.where rollback): no pre-apply copy of (step, params,
-            # opt_state), no host-synced finite check per global step
-            # (make_guarded_apply_step)
-            flat_fn = (
-                self._ensure_flat_apply(state, mean_grads.spec)
-                if isinstance(mean_grads, FlatTree) else None
-            )
-            if flat_fn is not None:
-                # FLAT apply: the averaged result crosses host->device as
-                # ONE buffer and the whole optimizer update runs as segment
-                # reductions over it (optim/flat.py)
-                flat_dev = torch.from_numpy(mean_grads.flat).to(
-                    self._device(state), copy=True)
-                new_state, ok = flat_fn(state, flat_dev)
-                self.last_apply = "flat"
-            else:
+            # NaN guard lives INSIDE the apply: no pre-apply copy of
+            # (step, params, opt_state), no host-synced finite check per
+            # global step
+            if self._slice is not None:
                 if isinstance(mean_grads, FlatTree):
-                    # flat result without a flat apply: rebuild the
-                    # params-keyed dict from the named views
                     mean_grads = _named_to_grads(mean_grads, self._grad_like(state))
-                if self._slice is not None:
-                    # every rank applies its blocks of the full result
-                    new_state, ok = self._slice.apply(self._apply_fn, state,
-                                                      mean_grads)
-                else:
-                    new_state, ok = self._apply_fn(state, mean_grads)
+                # every rank applies its blocks of the full result
+                new_state, ok = self._slice.apply(self._apply_fn, state,
+                                                  mean_grads)
                 self.last_apply = "leaf"
+            else:
+                # FLAT apply: the gradients reach the card as ONE buffer
+                # and the whole optimizer update runs as segment reductions
+                # over it (optim/flat.py). An averaged result is flat
+                # already; a dict (the solo path, the local-apply fallback,
+                # a named result) is flattened onto the same layout
+                if isinstance(mean_grads, FlatTree):
+                    layout, flat_fn = self._ensure_flat_apply(
+                        state, mean_grads.spec)
+                    flat = torch.from_numpy(mean_grads.flat).to(
+                        self._device(state), copy=True)
+                else:
+                    layout, flat_fn = self._ensure_flat_apply(
+                        state, DeviceFlatPipeline.for_tree(mean_grads).spec)
+                    flat = layout.flatten(mean_grads)
+                new_state, ok = flat_fn(state, flat)
+                self.last_apply = "flat"
             self._pending_apply_ok = (round_id, ok)
             if steps.current() is not None:
                 # recording only: the phase measures the apply's execution,

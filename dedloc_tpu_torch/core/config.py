@@ -286,14 +286,6 @@ class CollaborativeOptimizerArguments:
     # with matchmaking / accumulation. Off restores the legacy per-leaf
     # device_get + host flatten + host codec path.
     device_flat: bool = True
-    # fused flat optimizer apply (optim/flat.py + make_flat_apply_step):
-    # the averaged result crosses host->device as ONE buffer and the whole
-    # LAMB update runs as segment reductions over it, with the NaN guard
-    # fused in. Per-leaf guarded apply otherwise. Fleet-wide choice, like
-    # --averager.compression: peers should agree so replica params evolve
-    # identically (the flat math agrees with the per-leaf chain to float32
-    # reduction-order, ~1e-7 relative — see docs/perf.md round 6).
-    flat_apply: bool = True
 
 
 @dataclass

@@ -15,7 +15,7 @@ atomics), and the per-segment broadcast back is a ``repeat_interleave``.
 Numerics follow the port's per-leaf ``Lamb`` and ``Lars`` (``optim/lamb.py``,
 ``optim/lars.py``): the same operations in the same order on a one-leaf
 vector; the only differences are the reduction order of the norms and the
-mask expansions.
+mask expansions. ``flat_twin`` builds the flat form of a per-leaf optimizer;
 ``parallel.train_step.make_flat_apply_step`` consumes it.
 """
 from __future__ import annotations
@@ -26,7 +26,13 @@ import numpy as np
 import torch
 
 from dedloc_tpu_torch.models.convert import grad_name
-from dedloc_tpu_torch.optim.lamb import bias_corrections, trust_ratio_scale
+from dedloc_tpu_torch.optim.lamb import (
+    Lamb,
+    albert_weight_decay_mask,
+    bias_corrections,
+    trust_ratio_scale,
+)
+from dedloc_tpu_torch.optim.lars import Lars, local_rate
 
 
 def spec_spans(
@@ -88,8 +94,6 @@ class FlatLamb:
         clamp_value: float = 10000.0,
         max_grad_norm: Optional[float] = None,
     ) -> None:
-        from dedloc_tpu_torch.optim.lamb import Lamb
-
         self.spans = spec_spans(spec)
         self.total = sum(s for _o, s in self.spans)
         self.decay_flags = np.asarray(list(decay_flags), np.float32)
@@ -166,8 +170,6 @@ class FlatLars:
         eps: float = 1e-8,
         clip: bool = True,
     ) -> None:
-        from dedloc_tpu_torch.optim.lars import Lars
-
         self.spans = spec_spans(spec)
         self.total = sum(s for _o, s in self.spans)
         self.excluded_flags = np.asarray(list(excluded_flags), np.float32)
@@ -203,8 +205,6 @@ class FlatLars:
         """One LARS step on flat buffers (``sched_count`` a 0-d int32
         tensor). Returns ``(flat_updates, new_flat_momentum)``: the update
         added to the params is the new momentum."""
-        from dedloc_tpu_torch.optim.lars import local_rate
-
         sizes, excluded = self._segments(flat_grads.device)
         lr = self._chain._lr(sched_count)
         g = flat_grads + self.weight_decay * flat_params
@@ -226,3 +226,24 @@ def tree_flags(mask: Mapping[str, bool], params: Mapping[str, torch.Tensor],
     sorted-JAX-name spec order the flat buffer uses."""
     by_name = {grad_name(n, p.ndim)[0]: bool(mask[n]) for n, p in params.items()}
     return [by_name[name] for name in spec_names]
+
+
+def flat_twin(tx, spec, params: Mapping[str, torch.Tensor]):
+    """The flat form of the per-leaf optimizer ``tx`` over ``spec`` (the
+    sorted-JAX-name layout of the gradient buffer): a ``Lamb`` gives a
+    ``FlatLamb`` with its hyperparameters and the decay flags of the mask
+    ``Lamb.update`` applies, a ``Lars`` a ``FlatLars`` with no exclusions
+    (``Lars`` has none). Raises ``TypeError`` for any other optimizer."""
+    names = [name for name, _shape, _dtype in spec]
+    if isinstance(tx, Lamb):
+        return FlatLamb(
+            spec, tree_flags(albert_weight_decay_mask(params), params, names),
+            tx.learning_rate, b1=tx.b1, b2=tx.b2, eps=tx.eps,
+            weight_decay=tx.weight_decay, clamp_value=tx.clamp_value,
+            max_grad_norm=tx.max_grad_norm)
+    if isinstance(tx, Lars):
+        return FlatLars(
+            spec, [False] * len(spec), tx.learning_rate, momentum=tx.momentum,
+            weight_decay=tx.weight_decay, trust_coefficient=tx.trust_coefficient,
+            eps=tx.eps, clip=tx.clip)
+    raise TypeError(f"no flat form of the optimizer {type(tx)!r}")

@@ -451,7 +451,9 @@ def make_flat_apply_step(flat_tx, spec, post_apply=None,
     state (checkpoints, state sharing and wire names unchanged).
 
     ``from_tree=True`` takes a dict of gradients keyed by parameter name
-    (the solo path, where gradients were never flattened)."""
+    and flattens it onto the same layout, as ``CollaborativeOptimizer``
+    does with the gradients of a solo step or of the local-apply fallback,
+    which were never flattened."""
     from dedloc_tpu_torch.optim.flat import FlatLamb, FlatLars
 
     if not isinstance(flat_tx, (FlatLamb, FlatLars)):

@@ -27,6 +27,7 @@ from dedloc_tpu_torch.models.albert import (
     init_weights,
 )
 from dedloc_tpu_torch.dht.dht import DHT
+from dedloc_tpu_torch.optim.flat import flat_twin
 from dedloc_tpu_torch.optim.lamb import Lamb
 from dedloc_tpu_torch.optim.schedules import linear_warmup_linear_decay
 from dedloc_tpu_torch.telemetry.steps import in_region
@@ -170,27 +171,11 @@ def build_optimizer(args) -> Lamb:
 
 
 def build_flat_opt_factory(args) -> Callable:
-    """(spec, params) -> ``optim.flat.FlatLamb`` for the SAME
-    hyperparameters as ``build_optimizer``: the flat apply's twin of the
-    per-leaf chain (--optimizer.flat_apply). A factory, because the wire
-    spec only exists once the first gradient dict does."""
-    tr = _training(args)
-    schedule = _schedule(tr)
-
-    def factory(spec, params):
-        from dedloc_tpu_torch.optim.flat import FlatLamb, tree_flags
-        from dedloc_tpu_torch.optim.lamb import albert_weight_decay_mask
-
-        flags = tree_flags(albert_weight_decay_mask(params), params,
-                           [name for name, _shape, _dtype in spec])
-        return FlatLamb(
-            spec, flags, schedule,
-            weight_decay=tr.weight_decay,
-            clamp_value=tr.clamp_value,
-            max_grad_norm=tr.max_grad_norm,
-        )
-
-    return factory
+    """(spec, params) -> ``optim.flat.FlatLamb``: the flat twin
+    (``optim.flat.flat_twin``) of the optimizer ``build_optimizer`` builds.
+    A factory, because the wire spec only exists once the first gradient
+    dict does."""
+    return lambda spec, params: flat_twin(build_optimizer(args), spec, params)
 
 
 def build_authorizer(args: CollaborationArguments):

@@ -55,6 +55,7 @@ from dedloc_tpu_torch.models.swav import (
     make_prototype_post_apply,
     make_swav_accumulate_step,
 )
+from dedloc_tpu_torch.optim.flat import flat_twin
 from dedloc_tpu_torch.optim.lars import Lars
 from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
 from dedloc_tpu_torch.parallel.mesh import init_slice, make_mesh
@@ -92,37 +93,25 @@ def build_swav(args: SwAVCollaborationArguments, mesh=None):
         )
         spec = MultiCropSpec()
     model = init_weights(SwAVModel(cfg, mesh), torch.Generator().manual_seed(t.seed))
-    schedule = linear_warmup_cosine_annealing(
-        t.learning_rate, t.warmup_steps, t.total_steps
-    )
-    tx = Lars(
-        learning_rate=schedule,
+    return cfg, spec, model, _build_lars(t)
+
+
+def _build_lars(t) -> Lars:
+    """LARS + linear warmup / cosine annealing from the training flags."""
+    return Lars(
+        learning_rate=linear_warmup_cosine_annealing(
+            t.learning_rate, t.warmup_steps, t.total_steps
+        ),
         momentum=t.momentum,
         weight_decay=t.weight_decay,
         trust_coefficient=t.trust_coefficient,
     )
-    return cfg, spec, model, tx
 
 
 def _build_flat_lars_factory(t):
-    """(spec, params) -> ``optim.flat.FlatLars`` mirroring ``build_swav``'s
-    LARS hyperparameters (the fused flat apply; --optimizer.flat_apply)."""
-    schedule = linear_warmup_cosine_annealing(
-        t.learning_rate, t.warmup_steps, t.total_steps
-    )
-
-    def factory(spec, params):
-        from dedloc_tpu_torch.optim.flat import FlatLars
-
-        # build_swav's Lars has no exclusions: no skipped spans
-        return FlatLars(
-            spec, [False] * len(spec), schedule,
-            momentum=t.momentum,
-            weight_decay=t.weight_decay,
-            trust_coefficient=t.trust_coefficient,
-        )
-
-    return factory
+    """(spec, params) -> ``optim.flat.FlatLars``: the flat twin
+    (``optim.flat.flat_twin``) of ``build_swav``'s LARS."""
+    return lambda spec, params: flat_twin(_build_lars(t), spec, params)
 
 
 def checkpoint_tree(params: Mapping[str, torch.Tensor],
@@ -288,13 +277,8 @@ def run_swav(args: SwAVCollaborationArguments) -> TrainState:
         min_refresh_period=args.averager.min_refresh_period,
         max_refresh_period=args.averager.max_refresh_period,
         default_refresh_period=args.averager.default_refresh_period,
-        # device-flat boundary + fused flat LARS apply (same knobs as the
-        # ALBERT trainer; the flat apply is off on a slice)
+        # device-flat boundary (same knob as the ALBERT trainer)
         device_flat=args.optimizer.device_flat,
-        flat_opt_factory=(
-            _build_flat_lars_factory(t)
-            if args.optimizer.flat_apply else None
-        ),
         **checkpoint_kwargs(args, _public_key),
         client_mode=args.dht.client_mode,
         relay=args.dht.relay or None,

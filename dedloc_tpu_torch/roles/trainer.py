@@ -78,7 +78,6 @@ from dedloc_tpu_torch.parallel.train_step import (
 from dedloc_tpu_torch.roles.common import (
     build_authorizer,
     build_dht,
-    build_flat_opt_factory,
     build_loss_fn,
     build_model,
     build_optimizer,
@@ -294,13 +293,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
         health_gate_loss_ratio=args.optimizer.health_gate_loss_ratio,
         state_sync_retries=args.averager.state_sync_retries,
         state_sync_backoff=args.averager.state_sync_backoff,
-        # device-flat boundary + flat apply (--optimizer.device_flat /
-        # --optimizer.flat_apply)
+        # device-flat boundary (--optimizer.device_flat)
         device_flat=args.optimizer.device_flat,
-        flat_opt_factory=(
-            build_flat_opt_factory(args)
-            if args.optimizer.flat_apply else None
-        ),
         **checkpoint_kwargs(args, public_key),
         min_refresh_period=args.averager.min_refresh_period,
         max_refresh_period=args.averager.max_refresh_period,

@@ -1,13 +1,17 @@
 """The port's CollaborativeOptimizer: two torch peers over loopback emulate
 one large-batch run (the analog of tests/test_equivalence.py for the
-port), a solo peer steps alone, and a non-finite update rolls back."""
+port), a solo peer steps alone through the flat apply on every route, and a
+non-finite update rolls back."""
 import threading
 import time
 
 import pytest
 import torch
 
+from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
 from dedloc_tpu_torch.collaborative import CollaborativeOptimizer
+from dedloc_tpu_torch.collaborative.optimizer import _fused_mean_clip
+from dedloc_tpu_torch.collaborative.progress import CollaborationState
 from dedloc_tpu_torch.core.config import TrainingArguments
 from dedloc_tpu_torch.dht import DHT
 from dedloc_tpu_torch.models.albert import (
@@ -15,14 +19,15 @@ from dedloc_tpu_torch.models.albert import (
     AlbertForPreTraining,
     init_weights,
 )
+from dedloc_tpu_torch.optim.flat import flat_twin
 from dedloc_tpu_torch.parallel.train_step import (
     TrainState,
     make_accumulate_step,
     make_apply_step,
+    make_flat_apply_step,
     zeros_like_grads,
 )
 from dedloc_tpu_torch.roles.common import (
-    build_flat_opt_factory,
     build_loss_fn,
     build_optimizer,
     drop_collator_keys,
@@ -89,17 +94,13 @@ def single_run():
     return _params(model)
 
 
-def _run_peer(idx, dht, results, errors, prefix, micro, flat_apply):
+def _run_peer(idx, dht, results, errors, prefix, micro):
     try:
         model = _model()
         params = dict(model.named_parameters())
-        args = TrainingArguments(**RECIPE)
-        tx = build_optimizer(args)
-        opt = CollaborativeOptimizer(
-            tx, dht, prefix, target_batch_size=2 * B,
-            flat_opt_factory=build_flat_opt_factory(args) if flat_apply else None,
-            **OPT_KW,
-        )
+        tx = build_optimizer(TrainingArguments(**RECIPE))
+        opt = CollaborativeOptimizer(tx, dht, prefix, target_batch_size=2 * B,
+                                     **OPT_KW)
         state = TrainState.create(params, tx)
         accumulate = make_accumulate_step(build_loss_fn(model))
         grad_acc, n_acc = zeros_like_grads(params), 0
@@ -133,7 +134,7 @@ def test_two_torch_peers_match_one_large_batch(single_run):
     results, errors = {}, []
     threads = [
         threading.Thread(target=_run_peer, daemon=True,
-                         args=(i, d, results, errors, "torch-equiv", micro, True))
+                         args=(i, d, results, errors, "torch-equiv", micro))
         for i, d in ((0, first), (1, second))
     ]
     try:
@@ -158,20 +159,36 @@ def test_two_torch_peers_match_one_large_batch(single_run):
         first.shutdown()
 
 
-def test_solo_peer_steps_alone_through_the_guarded_apply():
-    """Alone past the grace period, a peer applies its own mean gradients
-    (per-leaf guarded apply, no averaging round)."""
+def _fail_every_round(opt):
+    """Partners reported at our step, but no round ever lands: after its
+    retries the peer applies its own mean gradients (local-apply fallback)."""
+    at_step = CollaborationState(
+        optimizer_step=0, samples_accumulated=2 * B, target_batch_size=B,
+        num_peers=2, num_clients=0, eta_next_step=0.0, next_fetch_time=0.0,
+        num_aux=0, num_peers_at_step=2, num_peers_near_step=2)
+    opt.tracker.fetch_collaboration_state = lambda force=False: at_step
+    opt.averager.step = lambda *args, **kwargs: (None, 1)
+
+
+@pytest.mark.parametrize("route", ["alone", "in_grace", "fallback"])
+def test_solo_peer_steps_alone_through_the_flat_apply(route):
+    """A peer with no partner applies its own mean gradients through the
+    flat apply on every route: alone past the grace period (no round),
+    within it (a round of one), and on the local-apply fallback after its
+    failed rounds. The result is the per-leaf chain's within float32
+    reduction order, and bitwise the flat apply built directly."""
     model = _model()
     params = dict(model.named_parameters())
-    args = TrainingArguments(**RECIPE)
-    tx = build_optimizer(args)
+    tx = build_optimizer(TrainingArguments(**RECIPE))
     dht = DHT(start=True, listen_host="127.0.0.1")
     opt = CollaborativeOptimizer(
-        tx, dht, "torch-solo", target_batch_size=B,
-        metadata_expiration=0.2, flat_opt_factory=build_flat_opt_factory(args),
-        **OPT_KW)
+        tx, dht, f"torch-solo-{route}", target_batch_size=B,
+        metadata_expiration=30.0 if route == "in_grace" else 0.2, **OPT_KW)
     try:
-        time.sleep(0.3)  # past the cold-start grace
+        if route == "fallback":
+            _fail_every_round(opt)
+        else:
+            time.sleep(0.3)  # past the cold-start grace, if it is 0.2 s
         state = TrainState.create(params, tx)
         accumulate = make_accumulate_step(build_loss_fn(model))
         micro = _micro(2)
@@ -182,7 +199,9 @@ def test_solo_peer_steps_alone_through_the_guarded_apply():
         g, n, _ = accumulate(params, g, n, micro[0])
         state, stepped = _step_until_stepped(opt, state, g, n, B)
         assert stepped and opt.local_step == 1
-        assert (opt.last_apply, opt.last_group_size) == ("leaf", 1)
+        assert (opt.last_apply, opt.last_group_size) == ("flat", 1)
+        # the boundary crossed the device-flat seam unless it stepped alone
+        assert ("grads_device_get" in opt.seam_ms) == (route != "alone")
         assert int(state.step) == 1 and int(state.opt_state.count) == 1
         rg, rn, _ = make_accumulate_step(build_loss_fn(ref))(
             ref_params, zeros_like_grads(ref_params), 0, micro[0])
@@ -190,6 +209,14 @@ def test_solo_peer_steps_alone_through_the_guarded_apply():
         for name in params:
             torch.testing.assert_close(params[name], ref_params[name],
                                        atol=1e-6, rtol=1e-6, msg=name)
+        flat = _model()
+        flat_params = dict(flat.named_parameters())
+        mean = _fused_mean_clip(rg, rn, 0.0)
+        spec = DeviceFlatPipeline.for_tree(mean).spec
+        make_flat_apply_step(flat_twin(tx, spec, flat_params), spec, from_tree=True)(
+            TrainState.create(flat_params, tx), mean)
+        for name in params:
+            assert torch.equal(params[name], flat_params[name]), name
     finally:
         opt.shutdown()
         dht.shutdown()

@@ -155,8 +155,18 @@ _CLOUD = (
      _GCE_GPU + "\n\nclass AwsEc2Provider(_CliProvider):"),
 )
 # the port's trainer also runs the DeepSeek-V3 family, one expert-parallel
-# rank per process, whose held experts the JAX package has no flag for
+# rank per process, whose held experts the JAX package has no flag for; a
+# port peer off a mesh always applies flat (the optimizer builds the flat
+# twin of its own chain), so it has no --optimizer.flat_apply
 _CONFIG = (
+    ("    # fused flat optimizer apply (optim/flat.py + make_flat_apply_step):\n"
+     "    # the averaged result crosses host->device as ONE buffer and the whole\n"
+     "    # LAMB update runs as segment reductions over it, with the NaN guard\n"
+     "    # fused in. Per-leaf guarded apply otherwise. Fleet-wide choice, like\n"
+     "    # --averager.compression: peers should agree so replica params evolve\n"
+     "    # identically (the flat math agrees with the per-leaf chain to float32\n"
+     "    # reduction-order, ~1e-7 relative — see docs/perf.md round 6).\n"
+     "    flat_apply: bool = True", None),
     ("    moe_aux_weight: float = 0.01",
      "    moe_aux_weight: float = 0.01\n"
      "    # the deepseek_v3 family (--training.model_size moonlight-16b-a3b):\n"

@@ -1,6 +1,6 @@
 """The port's flat LAMB apply against the JAX package's, the per-leaf
-chain, the guarded rollback, and the shared-state names of the optax
-chain."""
+chain, the guarded rollback, the shared-state names of the optax chain,
+and the flat twin each per-leaf optimizer builds of itself."""
 import dataclasses
 
 import jax
@@ -19,22 +19,30 @@ from dedloc_tpu.optim.lamb import lamb as jax_lamb
 from dedloc_tpu.optim.schedules import linear_warmup_linear_decay as jax_linear
 from dedloc_tpu.parallel import train_step as jax_ts
 from dedloc_tpu.roles import common as jax_common
-from dedloc_tpu_torch.core.config import TrainingArguments
+from dedloc_tpu_torch.core.config import SwAVTrainingArguments, TrainingArguments
 from dedloc_tpu_torch.models import convert
 from dedloc_tpu_torch.optim.flat import (
+    FlatLamb,
+    FlatLars,
     expand_segments,
+    flat_twin,
     segment_sizes,
     segment_sumsq,
     spec_spans,
+    tree_flags,
 )
-from dedloc_tpu_torch.optim.lamb import Lamb
-from dedloc_tpu_torch.optim.schedules import linear_warmup_linear_decay
+from dedloc_tpu_torch.optim.lamb import Lamb, albert_weight_decay_mask
+from dedloc_tpu_torch.optim.schedules import (
+    linear_warmup_cosine_annealing,
+    linear_warmup_linear_decay,
+)
 from dedloc_tpu_torch.parallel.train_step import (
     TrainState,
     make_flat_apply_step,
     make_guarded_apply_step,
 )
 from dedloc_tpu_torch.roles.common import build_flat_opt_factory, build_optimizer
+from dedloc_tpu_torch.roles.swav import _build_flat_lars_factory, _build_lars
 
 RECIPE = dict(learning_rate=5e-2, warmup_steps=0, total_steps=10,
               weight_decay=0.01, max_grad_norm=1.0)
@@ -220,3 +228,58 @@ def test_segment_reductions_are_per_leaf_norms():
         torch.testing.assert_close(got, (flat[o:o + s] ** 2).sum())
     expanded = expand_segments(torch.arange(4.0), segment_sizes(spans, "cpu"), total)
     assert expanded.tolist() == [0.0] * 12 + [2.0] + [3.0] * 7
+
+
+# the fields of a flat optimizer, and its learning rate at these counts
+_FIELDS = {FlatLamb: ("spans", "total", "decay_flags", "b1", "b2", "eps",
+                      "weight_decay", "clamp_value", "max_grad_norm"),
+           FlatLars: ("spans", "total", "excluded_flags", "momentum",
+                      "weight_decay", "trust_coefficient", "eps", "clip")}
+_COUNTS = range(0, 12, 2)
+
+
+@pytest.mark.parametrize("kind", ["lamb", "lars", "other"])
+def test_flat_twin_is_the_role_factories_flat_optimizer(setup, kind):
+    """``flat_twin`` of the roles' optimizers gives, field for field, the
+    flat optimizer each role's factory built by hand from the same flags
+    (the ALBERT decay mask as flags; LARS with no exclusions), and the
+    kept factories give it too. Any other optimizer has no flat form."""
+    _tx, state = _port_state(setup[0])
+    params = state.params
+    spec = [(name, tuple(p.shape), np.float32) for name, p in
+            sorted(convert.params_to_jax(params).items())]
+    names = [name for name, _shape, _dtype in spec]
+    if kind == "other":
+        with pytest.raises(TypeError, match="no flat form"):
+            flat_twin(object(), spec, params)
+        return
+    if kind == "lamb":
+        tr = TrainingArguments(**dict(RECIPE, warmup_steps=3))
+        expected = FlatLamb(
+            spec, tree_flags(albert_weight_decay_mask(params), params, names),
+            linear_warmup_linear_decay(tr.learning_rate, warmup_steps=tr.warmup_steps,
+                                       total_steps=tr.total_steps),
+            weight_decay=tr.weight_decay, clamp_value=tr.clamp_value,
+            max_grad_norm=tr.max_grad_norm)
+        built = [flat_twin(build_optimizer(tr), spec, params),
+                 build_flat_opt_factory(tr)(spec, params)]
+        assert not all(expected.decay_flags) and any(expected.decay_flags)
+    else:
+        t = SwAVTrainingArguments(learning_rate=0.3, warmup_steps=3, total_steps=10)
+        expected = FlatLars(
+            spec, [False] * len(spec),
+            linear_warmup_cosine_annealing(t.learning_rate, t.warmup_steps,
+                                           t.total_steps),
+            momentum=t.momentum, weight_decay=t.weight_decay,
+            trust_coefficient=t.trust_coefficient)
+        built = [flat_twin(_build_lars(t), spec, params),
+                 _build_flat_lars_factory(t)(spec, params)]
+    for flat_tx in built:
+        assert type(flat_tx) is type(expected)
+        for field in _FIELDS[type(expected)]:
+            ours, ref = getattr(flat_tx, field), getattr(expected, field)
+            assert np.array_equal(ours, ref) if isinstance(ref, np.ndarray) \
+                else ours == ref, field
+        for count in _COUNTS:
+            c = torch.tensor(count, dtype=torch.int32)
+            assert torch.equal(flat_tx._chain._lr(c), expected._chain._lr(c)), count

@@ -97,9 +97,17 @@ def test_two_slice_peers(tmp_path):
     two boundaries and average in groups of 2. (At a target of 16 a slice
     that started first reached it alone, before its partner's progress
     record was visible, and stepped solo; the JAX package's peers do the
-    same, ROADMAP §C2.) Each slice runs 16 boundaries: on a loaded machine
-    one slice can start several boundaries after the other, and 8 were
-    spent before it arrived."""
+    same, ROADMAP §C2.) Each slice runs 16 boundaries.
+
+    A slice reports its progress once a boundary, and on a loaded machine a
+    boundary takes seconds. The progress records live 10 s here, longer
+    than any boundary, so while both slices run each one sees the other at
+    every decision. With the 0.2 s of the one-peer tests a slice saw its
+    partner only when it decided within 0.2 s of the partner's last
+    report: both slices, started together, then stepped alone at every
+    global step. The grace period is as long, so neither steps alone
+    within its first 10 s; a slice whose partner has stopped waits out one
+    averaging window before it does."""
     root_args = parse_config(CollaborationArguments, _flags(tmp_path))
     root, _ = build_dht(root_args)
     try:
@@ -107,7 +115,8 @@ def test_two_slice_peers(tmp_path):
         mesh = ["--training.mesh_devices", "2", "--training.mesh_model_devices", "2",
                 "--dht.initial_peers", addr, "--optimizer.target_batch_size", "32",
                 "--training.max_local_steps", "16",
-                "--averager.averaging_expiration", "15"]
+                "--averager.averaging_expiration", "15",
+                "--averager.metadata_expiration", "10"]
         for i in (0, 1):
             (tmp_path / f"s{i}").mkdir()
         running = [run_slice_cli(str(tmp_path), 2,

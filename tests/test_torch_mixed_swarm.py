@@ -32,7 +32,6 @@ from dedloc_tpu_torch.parallel.train_step import (
     zeros_like_grads,
 )
 from dedloc_tpu_torch.roles.common import (
-    build_flat_opt_factory,
     build_loss_fn,
     build_optimizer,
     drop_collator_keys,
@@ -119,9 +118,7 @@ def test_jax_and_torch_peers_average_in_the_same_rounds(jax_init):
         try:
             args = _jax_args()
             tx = jax_common.build_optimizer(args)
-            opt = JaxOptimizer(tx, jdht, "mixed", target_batch_size=2 * B,
-                               flat_opt_factory=jax_common.build_flat_opt_factory(args),
-                               **OPT_KW)
+            opt = JaxOptimizer(tx, jdht, "mixed", target_batch_size=2 * B, **OPT_KW)
             _record_averaged(opt, received["jax"])
             acc = jax_ts.make_accumulate_step(jax_common.build_loss_fn(jmodel))
 
@@ -149,7 +146,6 @@ def test_jax_and_torch_peers_average_in_the_same_rounds(jax_init):
             targs = TrainingArguments(**RECIPE)
             tx = build_optimizer(targs)
             opt = CollaborativeOptimizer(tx, tdht, "mixed", target_batch_size=2 * B,
-                                         flat_opt_factory=build_flat_opt_factory(targs),
                                          **OPT_KW)
             _record_averaged(opt, received["torch"])
             acc = make_accumulate_step(build_loss_fn(model))

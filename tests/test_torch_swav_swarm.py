@@ -22,7 +22,6 @@ from dedloc_tpu.models import swav as jswav
 from dedloc_tpu.optim.lars import lars as jax_lars
 from dedloc_tpu.optim.schedules import linear_warmup_cosine_annealing as jax_cosine
 from dedloc_tpu.parallel import train_step as jax_ts
-from dedloc_tpu.roles import swav as jax_role
 from dedloc_tpu_torch.collaborative import CollaborativeOptimizer
 from dedloc_tpu_torch.core.config import SwAVTrainingArguments
 from dedloc_tpu_torch.data.multicrop import MultiCropSpec, synthetic_multicrop_batches
@@ -33,7 +32,6 @@ from dedloc_tpu_torch.models.resnet import init_batch_stats, init_weights
 from dedloc_tpu_torch.optim.lars import Lars
 from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
 from dedloc_tpu_torch.parallel.train_step import TrainState, zeros_like_grads
-from dedloc_tpu_torch.roles.swav import _build_flat_lars_factory
 
 RECIPE = dict(learning_rate=0.3, warmup_steps=0, total_steps=100, momentum=0.9,
               weight_decay=1e-6, trust_coefficient=0.001)
@@ -117,7 +115,6 @@ def test_jax_and_torch_swav_peers_average_in_the_same_rounds(one_torch_thread):
                           momentum=t.momentum, weight_decay=t.weight_decay,
                           trust_coefficient=t.trust_coefficient)
             opt = JaxOptimizer(tx, jdht, "swav-mixed", target_batch_size=2 * B,
-                               flat_opt_factory=jax_role._build_flat_lars_factory(t),
                                post_apply=jswav.make_prototype_post_apply(), **OPT_KW)
             _record_averaged(opt, received["jax"])
             acc = jswav.make_swav_accumulate_step(jmodel, jcfg)
@@ -149,7 +146,6 @@ def test_jax_and_torch_swav_peers_average_in_the_same_rounds(one_torch_thread):
                       momentum=t.momentum, weight_decay=t.weight_decay,
                       trust_coefficient=t.trust_coefficient)
             opt = CollaborativeOptimizer(tx, tdht, "swav-mixed", target_batch_size=2 * B,
-                                         flat_opt_factory=_build_flat_lars_factory(t),
                                          post_apply=swav.make_prototype_post_apply(),
                                          **OPT_KW)
             _record_averaged(opt, received["torch"])

@@ -48,7 +48,7 @@ def test_solo_trainer_on_the_cpu_takes_its_boundaries(tmp_path, monkeypatch):
     assert records, "no global step in two boundaries"
     for r in records:
         assert np.isfinite(r["loss"])
-        assert r["group_size"] == 1 and r["apply"] == "leaf"
+        assert r["group_size"] == 1 and r["apply"] == "flat"
     # the checkpoint carries the JAX trainer's shared-state names
     step, named, meta = load_latest_checkpoint(str(tmp_path / "out"))
     assert step == records[-1]["step"] == meta["local_step"]

@@ -805,6 +805,213 @@ def expert_rows_rows(gen) -> list:
     return result
 
 
+MT_SRC = "dedloc_tpu_torch/ops/multi_tensor.py"
+MT_KERNELS = dict(sumsq="_sq_kernel + _leaf_sums_kernel",
+                  all_finite="_sq_kernel + _leaf_sums_kernel",
+                  scaled_copy="_copy_kernel", lamb_norms="_lamb_kernel + _leaf_sums_kernel",
+                  lamb_candidate="_lamb_kernel", lamb_commit="_lamb_kernel",
+                  lars_norms="_lars_kernel + _leaf_sums_kernel",
+                  lars_candidate="_lars_kernel", lars_commit="_lars_kernel")
+# bytes an element each wrapper must move: each operand read once, each
+# output written once (the per-chunk partials and per-leaf scalars aside)
+MT_BYTES = dict(sumsq=4, all_finite=4, scaled_copy=8, lamb_norms=16, lamb_candidate=20,
+                lamb_commit=28, lars_norms=8, lars_candidate=16, lars_commit=24)
+
+
+def _cell_leaves(cell: str) -> list:
+    """The parameter shapes of the Moonlight cell (10 layers, 8 of 64
+    experts, vocabulary 20,480) or of the SwAV cell (ResNet-50, 3,000
+    prototypes), from models built on the meta device."""
+    from dedloc_tpu_torch.models.swav import SwAVConfig, SwAVModel
+    from dedloc_tpu_torch.roles.common import build_model
+
+    if cell == "moonlight":
+        _cfg, model = build_model("moonlight-16b-a3b", device="meta", moe_experts_held=8,
+                                  overrides=dict(num_hidden_layers=10, vocab_size=20480))
+    else:
+        with torch.device("meta"):
+            model = SwAVModel(SwAVConfig())
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def multi_tensor_rows(gen) -> list:
+    """The boundary's multi-tensor passes (``ops/multi_tensor.py``) over
+    the Moonlight cell's 130 leaves (1.07 B parameters) and the SwAV
+    cell's 166 (28.4 M): each wrapper against its plain version on the same
+    tensors (the commits on copies of the state: LAMB's at both sizes,
+    LARS's at SwAV's), then timed by CUDA-graph replay beside its bytes
+    (each operand read once, each output written once) and the plain
+    version's time (CUDA events).
+    The whole boundary (the mean, then a LAMB or LARS apply with the
+    guard) is timed too."""
+    from dedloc_tpu_torch.collaborative.optimizer import _fused_mean_clip
+    from dedloc_tpu_torch.ops import multi_tensor as mt
+    from dedloc_tpu_torch.optim.lamb import Lamb, LambState
+    from dedloc_tpu_torch.optim.lars import Lars, LarsState
+
+    result = []
+    for cell in ("moonlight", "swav"):
+        shapes = _cell_leaves(cell)
+        n = sum(math.prod(s) for s in shapes)
+        table = mt.LeafTable([math.prod(s) for s in shapes],
+                             [len(s) > 1 for s in shapes])
+        draw = lambda scale: [torch.randn(s, generator=gen, device="cuda") * scale
+                              for s in shapes]
+        g, p, mu, nu = draw(1e-3), draw(0.02), draw(1e-4), draw(1e-4)
+        nu = [v.abs_() for v in nu]
+        out = table.empty_like(p)
+        b = table.bind([g, p, mu, nu, out])
+        lb = table.bind([g, p, mu, out])
+        cb = table.bind([g, out])
+        log(f"[kernels] multi-tensor passes, {cell}: {len(shapes)} leaves, {n:,} "
+            f"parameters, {table.n_chunks:,} chunks, vec {b.vec}")
+        lamb = Lamb(2.2e-4, weight_decay=0.1, max_grad_norm=1.0)
+        lars = Lars(0.3, weight_decay=1e-6)
+        g_norm = torch.sqrt(mt.sumsq_plain(g).sum())
+        bc1, bc2 = (torch.full((), v, device="cuda") for v in (0.1, 0.000999500166))
+        neg_lr = torch.full((), -2.2e-4, device="cuda")
+        ratio = torch.rand(len(table), generator=gen, device="cuda") + 0.5
+        neg_rate = -torch.rand(len(table), generator=gen, device="cuda") * 1e-3
+        yes = torch.ones((), dtype=torch.bool, device="cuda")
+
+        def rel(name, got, want):
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            if not err <= 1e-5:
+                fail(f"multi-tensor {cell} {name}: {err:.3e} relative (tol 1e-5)")
+            return err
+
+        def leaves_rel(name, got, want):
+            return max(rel(name, x, y) for x, y in zip(got, want))
+
+        errs = dict(
+            sumsq=rel("sumsq", mt.sumsq(b, mt.G), mt.sumsq_plain(g)),
+            lamb_norms=rel("lamb norms", mt.lamb_norms(b, lamb, g_norm, bc1, bc2),
+                           mt.lamb_norms_plain(b, lamb, g_norm, bc1, bc2)),
+            lars_norms=rel("lars norms", mt.lars_norms(lb, lars),
+                           mt.lars_norms_plain(lb, lars.weight_decay)),
+        )
+        if not bool(mt.all_finite(b, mt.G)):
+            fail(f"multi-tensor {cell}: all_finite False on finite leaves")
+        g[-1].view(-1)[-1] = float("nan")
+        if bool(mt.all_finite(b, mt.G)):
+            fail(f"multi-tensor {cell}: all_finite True with a NaN in the last leaf")
+        g[-1].view(-1)[-1] = 0.0
+        errs["all_finite"] = 0.0
+        want = table.empty_like(p)
+        mt.scaled_copy(cb, 3)
+        mt.scaled_copy_plain(g, want, 3)
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            fail(f"multi-tensor {cell}: the mean's division differs from the plain one")
+        errs["scaled_copy"] = 0.0
+        mt.lamb_candidate(b, lamb, g_norm, bc1, bc2, neg_lr, ratio)
+        mt.lamb_candidate_plain(table.bind([g, p, mu, nu, want]), lamb, g_norm, bc1,
+                                bc2, neg_lr, ratio)
+        errs["lamb_candidate"] = leaves_rel("lamb candidate", out, want)
+        mt.lars_candidate(lb, lars, neg_rate)
+        mt.lars_candidate_plain(table.bind([g, p, mu, want]), lars, neg_rate)
+        errs["lars_candidate"] = leaves_rel("lars candidate", out, want)
+        del want
+        # the commits on two copies of the state (at Moonlight's size 26 GB
+        # beside the 21 GB bound above); LARS's at SwAV's size alone
+        copies = lambda: [[t.clone() for t in r] for r in (p, mu, nu)]
+        (p1, mu1, nu1), (p2, mu2, nu2) = copies(), copies()
+        mt.lamb_commit(table.bind([g, p1, mu1, nu1, out]), lamb, g_norm, yes)
+        mt.lamb_commit_plain(table.bind([g, p2, mu2, nu2, out]), lamb, g_norm, yes)
+        errs["lamb_commit"] = max(leaves_rel("lamb commit", x, y)
+                                  for x, y in ((p1, p2), (mu1, mu2), (nu1, nu2)))
+        if cell == "swav":
+            mt.lars_commit(table.bind([g, p1, mu1, out]), lars, neg_rate, yes)
+            mt.lars_commit_plain(table.bind([g, p2, mu2, out]), lars, neg_rate, yes)
+            errs["lars_commit"] = max(leaves_rel("lars commit", x, y)
+                                      for x, y in ((p1, p2), (mu1, mu2)))
+        del p1, mu1, nu1, p2, mu2, nu2
+        calls = dict(
+            sumsq=(lambda: mt.sumsq(b, mt.G), lambda: mt.sumsq_plain(g)),
+            all_finite=(lambda: mt.all_finite(b, mt.G), lambda: mt.all_finite_plain(g)),
+            scaled_copy=(lambda: mt.scaled_copy(cb, 3),
+                         lambda: mt.scaled_copy_plain(g, out, 3)),
+            lamb_norms=(lambda: mt.lamb_norms(b, lamb, g_norm, bc1, bc2),
+                        lambda: mt.lamb_norms_plain(b, lamb, g_norm, bc1, bc2)),
+            lamb_candidate=(lambda: mt.lamb_candidate(b, lamb, g_norm, bc1, bc2, neg_lr,
+                                                      ratio),
+                            lambda: mt.lamb_candidate_plain(b, lamb, g_norm, bc1, bc2,
+                                                            neg_lr, ratio)),
+            lamb_commit=(lambda: mt.lamb_commit(b, lamb, g_norm, yes),
+                         lambda: mt.lamb_commit_plain(b, lamb, g_norm, yes)),
+            lars_norms=(lambda: mt.lars_norms(lb, lars),
+                        lambda: mt.lars_norms_plain(lb, lars.weight_decay)),
+            lars_candidate=(lambda: mt.lars_candidate(lb, lars, neg_rate),
+                            lambda: mt.lars_candidate_plain(lb, lars, neg_rate)),
+            lars_commit=(lambda: mt.lars_commit(lb, lars, neg_rate, yes),
+                         lambda: mt.lars_commit_plain(lb, lars, neg_rate, yes)),
+        )
+        big = cell == "moonlight"
+        for name, (kernel, plain) in calls.items():
+            n_bytes = MT_BYTES[name] * n
+            result.append(dict(
+                name=name, kernel=MT_KERNELS[name], route="triton", source=MT_SRC,
+                path=f"{cell} boundary", replaces="none (the JAX package leaves the "
+                "update to XLA)", shape=[len(shapes), n], err=(errs.get(name), None),
+                tol="1e-5 of max |ref| (scaled_copy bitwise)",
+                ms=cuda_ms(kernel, 5, 2) if big else cuda_ms(kernel),
+                plain_ms=event_ms(plain), plain_timing="CUDA events", library_ms=None,
+                bytes=n_bytes, **bound(n_bytes)))
+            log(f"  {cell} {name}: {result[-1]['ms']:.4f} ms (bound "
+                f"{result[-1]['bound_ms']:.4f}, plain {result[-1]['plain_ms']:.4f})")
+        # the whole boundary as the cells run it, timed between CUDA events
+        from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
+        from dedloc_tpu_torch.optim.flat import flat_twin
+        from dedloc_tpu_torch.parallel.train_step import TrainState, make_flat_apply_step
+
+        del out, b, lb, cb
+        # Linear and Conv2d weights (a permuted wire layout, weight decay),
+        # biases, and the experts' stacks
+        kinds = {1: "bias", 2: "weight", 4: "weight"}
+        names = [f"l{i:03d}.{kinds.get(len(s), 'proj')}" for i, s in enumerate(shapes)]
+        params = dict(zip(names, p))
+        acc = dict(zip(names, g))
+        tx = lamb if big else lars
+        state = TrainState(step=0, params=params, opt_state=(
+            LambState(count=0, mu=dict(zip(names, mu)), nu=dict(zip(names, nu)),
+                      schedule_count=0) if big
+            else LarsState(momentum=dict(zip(names, mu)), schedule_count=0)))
+        spec = DeviceFlatPipeline.for_tree(acc).spec
+        apply = make_flat_apply_step(flat_twin(tx, spec, params), spec,
+                                     post_apply=lambda st: st, from_tree=True)
+        cap = 0.0 if big else 256.0
+
+        def boundary():
+            nonlocal state
+            state, ok = apply(state, _fused_mean_clip(acc, 2, cap))
+            return ok
+
+        before = {w.__name__: w.launches for w in mt.WRAPPERS}
+        ok = boundary()
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches - before[w.__name__] for w in mt.WRAPPERS}
+        if not bool(ok):
+            fail(f"multi-tensor {cell}: the boundary's apply rejected a finite step")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = event_ms(boundary)
+        extra = torch.cuda.max_memory_allocated() - held
+        per = sum(MT_BYTES[k] * v for k, v in launches.items()) * n
+        result.append(dict(
+            name="boundary", kernel="mean clip + " + ("LAMB" if big else "LARS") + " apply",
+            route="triton", source=MT_SRC, path=f"{cell} boundary", replaces="none",
+            shape=[len(shapes), n], err=(None, None), tol=None, ms=ms,
+            plain_ms=None, plain_timing="CUDA events (host launches included)",
+            library_ms=None, bytes=per, launches=launches,
+            extra_bytes_per_param=extra / n, **bound(per)))
+        log(f"  {cell} boundary: {ms:.3f} ms (bound {result[-1]['bound_ms']:.3f}), "
+            f"launches {launches}, {extra / n:.3f} B a parameter beyond the state")
+        del state, params, acc, g, p, mu, nu, apply
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def phase_kernels(seed: int) -> list:
     from torch.nn.attention import SDPBackend
 
@@ -865,6 +1072,9 @@ def phase_kernels(seed: int) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     results += expert_rows_rows(torch.Generator(device="cuda").manual_seed(seed + 2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    results += multi_tensor_rows(torch.Generator(device="cuda").manual_seed(seed + 3))
     gc.collect()
     torch.cuda.empty_cache()
 

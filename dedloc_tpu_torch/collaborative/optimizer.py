@@ -61,16 +61,15 @@ from dedloc_tpu_torch.telemetry import registry as telemetry
 from dedloc_tpu_torch.telemetry import steps
 from dedloc_tpu_torch.telemetry.registry import monotonic_clock
 from dedloc_tpu_torch.models.convert import from_jax_layout, grad_name, to_jax_layout
+from dedloc_tpu_torch.ops import multi_tensor
 from dedloc_tpu_torch.optim.flat import flat_twin
 from dedloc_tpu_torch.parallel.train_step import (
-    FlatLayout,
     TrainState,
     make_flat_apply_step,
     make_guarded_apply_step,
     zeros_like_grads,
 )
 from dedloc_tpu_torch.telemetry.steps import block_on_device
-from dedloc_tpu_torch.utils.device import divide
 from dedloc_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -112,16 +111,12 @@ def _state_views(state: TrainState, tx) -> Dict[str, torch.Tensor]:
 @steps.in_region("mean_clip")
 def _fused_mean_clip(grad_acc: Dict[str, torch.Tensor], n, cap: float):
     """The accumulator mean plus the contribution clip: ``grad_acc / n``
-    per leaf, one global-norm reduce (a fixed-order sum of per-leaf dots,
-    deterministic), one scale. ``cap <= 0`` disables the clip (the JAX
-    package multiplies by exactly 1.0 there, a bitwise no-op)."""
-    mean = {k: divide(g, n) for k, g in grad_acc.items()}
-    if cap <= 0:
-        return mean
-    gnorm = torch.sqrt(torch.stack(
-        [torch.dot(g.reshape(-1), g.reshape(-1)) for g in mean.values()]).sum())
-    scale = torch.clamp_max(torch.full_like(gnorm, cap) / (gnorm + 1e-12), 1.0)
-    return {k: g * scale for k, g in mean.items()}
+    per leaf, one global-norm reduce (a fixed-order sum of per-leaf sums,
+    deterministic), one scale; multi-tensor passes over the leaves
+    (``ops/multi_tensor.py`` ``mean_clip``), the result fp32 views of one
+    buffer. ``cap <= 0`` disables the clip (the JAX package multiplies by
+    exactly 1.0 there, a bitwise no-op)."""
+    return multi_tensor.mean_clip(grad_acc, n, cap)
 
 
 def adopt_state(state: TrainState, named: Dict[str, np.ndarray], step: int,
@@ -393,8 +388,9 @@ class CollaborativeOptimizer:
                 tx, mesh=mesh, opt_state_sharding=opt_state_sharding,
                 param_sharding=param_sharding, post_apply=post_apply,
             )
-        # (spec key, FlatLayout, flat apply) of the last gradient spec
-        self._flat_apply: Optional[Tuple[Any, FlatLayout, Callable]] = None
+        # (spec key, flat optimizer, {from_tree: flat apply}) of the last
+        # gradient spec
+        self._flat_apply: Optional[Tuple[Any, Any, Dict[bool, Callable]]] = None
         # device-resident flat gradient pipeline (built lazily from the
         # first boundary's gradient tree; see the constructor docstring)
         self.device_flat = bool(device_flat)
@@ -1046,17 +1042,20 @@ class CollaborativeOptimizer:
             self._pipeline = None
         return self._pipeline
 
-    def _ensure_flat_apply(self, state: TrainState, spec):
-        """(FlatLayout, flat apply) for the gradient ``spec``: the flat twin
-        of this peer's own optimizer (``optim.flat.flat_twin``), built once
-        per spec. A spec that does not match the params raises here."""
+    def _ensure_flat_apply(self, state: TrainState, spec, from_tree: bool):
+        """The flat apply for the gradient ``spec``, taking a flat wire
+        buffer or (``from_tree``) a dict keyed by parameter name: over the
+        flat twin of this peer's own optimizer (``optim.flat.flat_twin``),
+        built once per spec. A spec that does not match the params raises
+        here."""
         key = [(name, tuple(shape)) for name, shape, _dtype in spec]
         if self._flat_apply is None or self._flat_apply[0] != key:
-            self._flat_apply = (key, FlatLayout(spec, state.params),
-                                make_flat_apply_step(
-                                    flat_twin(self.tx, spec, state.params),
-                                    spec, post_apply=self.post_apply))
-        return self._flat_apply[1:]
+            self._flat_apply = (key, flat_twin(self.tx, spec, state.params), {})
+        _key, flat_tx, applies = self._flat_apply
+        if from_tree not in applies:
+            applies[from_tree] = make_flat_apply_step(
+                flat_tx, spec, post_apply=self.post_apply, from_tree=from_tree)
+        return applies[from_tree]
 
     def _check_apply_ok(self, final: bool = False) -> None:
         """Read the PREVIOUS apply's NaN verdict. Called at the
@@ -1319,21 +1318,21 @@ class CollaborativeOptimizer:
                                                   mean_grads)
                 self.last_apply = "leaf"
             else:
-                # FLAT apply: the gradients reach the card as ONE buffer
-                # and the whole optimizer update runs as segment reductions
-                # over it (optim/flat.py). An averaged result is flat
-                # already; a dict (the solo path, the local-apply fallback,
-                # a named result) is flattened onto the same layout
+                # FLAT apply: multi-tensor passes over the leaves in the
+                # wire's order (optim/flat.py). An averaged result comes as
+                # one flat buffer in the wire's layout; a dict (the solo
+                # path, the local-apply fallback, a named result) is read
+                # where it lies
                 if isinstance(mean_grads, FlatTree):
-                    layout, flat_fn = self._ensure_flat_apply(
-                        state, mean_grads.spec)
-                    flat = torch.from_numpy(mean_grads.flat).to(
+                    flat_fn = self._ensure_flat_apply(
+                        state, mean_grads.spec, from_tree=False)
+                    mean_grads = torch.from_numpy(mean_grads.flat).to(
                         self._device(state), copy=True)
                 else:
-                    layout, flat_fn = self._ensure_flat_apply(
-                        state, DeviceFlatPipeline.for_tree(mean_grads).spec)
-                    flat = layout.flatten(mean_grads)
-                new_state, ok = flat_fn(state, flat)
+                    flat_fn = self._ensure_flat_apply(
+                        state, DeviceFlatPipeline.for_tree(mean_grads).spec,
+                        from_tree=True)
+                new_state, ok = flat_fn(state, mean_grads)
                 self.last_apply = "flat"
             self._pending_apply_ok = (round_id, ok)
             if steps.current() is not None:

@@ -10,9 +10,10 @@ splits one step into two phases with different cadences:
 
 ``make_local_train_step`` fuses both for the single-peer path. The
 collaborative optimizer applies through ``make_guarded_apply_step`` (per
-leaf) or ``make_flat_apply_step`` (one flat buffer in the wire's layout):
-both fold the all-finite check and the rollback into the apply, so the
-verdict ``ok`` stays a device bool and no step waits on the host.
+leaf, on a slice) or ``make_flat_apply_step`` (off a mesh: multi-tensor
+passes over the leaves in the wire's order): both fold the all-finite
+check and the rollback into the apply, so the verdict ``ok`` stays a
+device bool and no step waits on the host.
 
 A loss function here is ``loss_fn(params, batch, rng) -> (loss, metrics)``
 where ``params`` maps parameter names to tensors (``roles.common.
@@ -37,6 +38,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from dedloc_tpu_torch.ops import multi_tensor as mt
 from dedloc_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     PartitionSpec as P,
@@ -387,50 +389,15 @@ class FlatLayout:
             tname, perm = by_jax[name]
             self.entries.append((tname, offset, size, tuple(shape), perm))
             offset += size
-        self.total = offset
-        self.key = [(name, tuple(shape)) for name, shape, _dtype in spec]
-
-    def flatten(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """One fp32 buffer in spec order, in the JAX layout."""
-        from dedloc_tpu_torch.models.convert import to_jax_layout
-
-        return torch.cat([
-            to_jax_layout(tensors[n], perm).reshape(-1).to(torch.float32)
-            for n, _o, _s, _shape, perm in self.entries
-        ])
+        self.names = [n for n, _o, _s, _shape, _perm in self.entries]
 
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The port's tensors as views of ``flat`` (in the port's layout)."""
+        """The port's tensors as views of ``flat`` (in the port's layout),
+        in spec order."""
         from dedloc_tpu_torch.models.convert import from_jax_layout
 
         return {n: from_jax_layout(flat[o:o + s].view(shape), perm)
                 for n, o, s, shape, perm in self.entries}
-
-    def unflatten_into(self, flat: torch.Tensor,
-                       tensors: Mapping[str, torch.Tensor]) -> None:
-        """Write ``flat`` back into ``tensors`` (in place), permuted where
-        the port's layout differs."""
-        for n, view in self.views(flat).items():
-            tensors[n].copy_(view)
-
-
-def _flat_update(flat_tx, layout: FlatLayout, flat_grads, flat_params, opt):
-    """One flat optimizer step: (updates, {field: (new flat, old flat)} for
-    the optimizer's tensor fields, {count field: new count})."""
-    from dedloc_tpu_torch.optim.flat import FlatLamb, FlatLars
-
-    if isinstance(flat_tx, FlatLamb):
-        flat_mu, flat_nu = layout.flatten(opt.mu), layout.flatten(opt.nu)
-        updates, mu, nu, count = flat_tx.update(
-            flat_grads, flat_params, flat_mu, flat_nu, opt.count,
-            opt.schedule_count)
-        return updates, {"mu": (mu, flat_mu), "nu": (nu, flat_nu)}, {"count": count}
-    if isinstance(flat_tx, FlatLars):
-        flat_mom = layout.flatten(opt.momentum)
-        updates, mom = flat_tx.update(flat_grads, flat_params, flat_mom,
-                                      opt.schedule_count)
-        return updates, {"momentum": (mom, flat_mom)}, {}
-    raise TypeError(f"unsupported flat optimizer {type(flat_tx)!r}")
 
 
 def make_flat_apply_step(flat_tx, spec, post_apply=None,
@@ -439,26 +406,29 @@ def make_flat_apply_step(flat_tx, spec, post_apply=None,
 
     ``flat_tx`` is an ``optim.flat.FlatLamb`` or ``FlatLars`` and ``spec``
     the TreeLayout spec (sorted JAX names) that the flat gradient buffer
-    follows: the averaging wire's spec, so the averaged result goes to the
-    card as ONE buffer. Params and the optimizer's tensors are flattened
-    onto that layout (permuted where the port's layout differs), the whole
-    update runs as segment reductions over the flat buffer, one all-finite
-    reduce over the new flat params gives ``ok``, and ``torch.where(ok,
-    new, old)`` on the flat buffers selects what is written back. With
-    ``post_apply`` (``TrainState -> TrainState``) the new params go through
-    it as views of the new flat buffer, and ``ok`` reads its output, as the
-    guarded apply does. The persistent state stays the per-leaf optimizer
-    state (checkpoints, state sharing and wire names unchanged).
+    follows: the averaging wire's spec. The update runs over the port's
+    own leaves in spec order, as multi-tensor passes over one leaf table
+    (``ops/multi_tensor.py``): ``flat_tx.candidate`` writes the candidate
+    parameters into a buffer of their own, with ``post_apply``
+    (``TrainState -> TrainState``) they go through it as views of that
+    buffer, one all-finite reduce over its output gives ``ok``, and
+    ``flat_tx.commit`` writes the optimizer's tensors and the parameters in
+    place only where ``ok`` holds, reading it on the device: a rejected
+    update leaves parameters, optimizer tensors, step and counts bitwise
+    unchanged, and nothing waits on the host. The persistent state stays
+    the per-leaf optimizer state (checkpoints, state sharing and wire names
+    unchanged).
 
-    ``from_tree=True`` takes a dict of gradients keyed by parameter name
-    and flattens it onto the same layout, as ``CollaborativeOptimizer``
-    does with the gradients of a solo step or of the local-apply fallback,
-    which were never flattened."""
+    The gradients are the flat buffer in the wire's (JAX) layout, whose
+    leaves are taken in the port's layout once, or, with
+    ``from_tree=True``, a dict keyed by parameter name (a solo step, the
+    local-apply fallback, the benchmark's programs), read where it lies."""
     from dedloc_tpu_torch.optim.flat import FlatLamb, FlatLars
 
     if not isinstance(flat_tx, (FlatLamb, FlatLars)):
         raise TypeError(f"unsupported flat optimizer {type(flat_tx)!r}")
     layouts: Dict[Tuple[str, ...], FlatLayout] = {}
+    table = flat_tx.table
 
     @in_region("opt_apply")
     @torch.no_grad()
@@ -467,32 +437,31 @@ def make_flat_apply_step(flat_tx, spec, post_apply=None,
         layout = layouts.get(key)
         if layout is None:
             layout = layouts[key] = FlatLayout(spec, state.params)
+        names = layout.names
         device = next(iter(state.params.values())).device
         state = _with_device_counts(state, device)
         opt = state.opt_state
-        flat_grads = layout.flatten(grads) if from_tree else grads
-        flat_params = layout.flatten(state.params)
-        updates, tensors, counts = _flat_update(flat_tx, layout, flat_grads,
-                                                flat_params, opt)
-        new_params = flat_params + updates
+        if not from_tree:
+            grads = layout.views(grads)
+        g = [grads[n].float().contiguous() for n in names]
+        p = [state.params[n] for n in names]
+        tensors = [[getattr(opt, f)[n] for n in names] for f in flat_tx.fields]
+        cand = table.empty_like(p)
+        b = table.bind([g, p, *tensors, cand])
+        ctx = flat_tx.candidate(b, opt)
         step = state.step + 1
-        if post_apply is None:
-            ok = torch.isfinite(new_params).all()
-            tensors["params"] = (new_params, flat_params)
-        else:
-            new = post_apply(TrainState(step=step, params=layout.views(new_params),
+        if post_apply is not None:
+            new = post_apply(TrainState(step=step, params=dict(zip(names, cand)),
                                         opt_state=opt))
-            ok = _all_finite(new.params.values())
-            for n, p in state.params.items():
-                p.copy_(torch.where(ok, new.params[n], p))
+            b = b.rebind(len(b.roles) - 1, [new.params[n].contiguous() for n in names])
             step = new.step
-        for field, (new_flat, old_flat) in tensors.items():
-            dst = state.params if field == "params" else getattr(opt, field)
-            layout.unflatten_into(torch.where(ok, new_flat, old_flat), dst)
+        ok = mt.all_finite(b, len(b.roles) - 1)
+        flat_tx.commit(b, ok, ctx)
         opt_state = opt._replace(
             schedule_count=torch.where(ok, opt.schedule_count + 1,
                                        opt.schedule_count),
-            **{f: torch.where(ok, c, getattr(opt, f)) for f, c in counts.items()},
+            **{f: torch.where(ok, c, getattr(opt, f))
+               for f, c in flat_tx.counts(opt).items()},
         )
         step = torch.where(ok, step, state.step)
         return TrainState(step=step, params=state.params, opt_state=opt_state), ok

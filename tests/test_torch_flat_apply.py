@@ -21,13 +21,11 @@ from dedloc_tpu.parallel import train_step as jax_ts
 from dedloc_tpu.roles import common as jax_common
 from dedloc_tpu_torch.core.config import SwAVTrainingArguments, TrainingArguments
 from dedloc_tpu_torch.models import convert
+from dedloc_tpu_torch.ops import multi_tensor as mt
 from dedloc_tpu_torch.optim.flat import (
     FlatLamb,
     FlatLars,
-    expand_segments,
     flat_twin,
-    segment_sizes,
-    segment_sumsq,
     spec_spans,
     tree_flags,
 )
@@ -217,17 +215,22 @@ def test_state_names_are_the_optax_chains(setup, clip, schedule):
 
 
 def test_segment_reductions_are_per_leaf_norms():
+    """The leaf table of a flat optimizer's spec (a 0-size and a 0-d leaf
+    among them) gives each leaf's sum of squares, bound to the leaves as
+    views of one flat buffer, and its chunk map covers each leaf's span."""
     gen = torch.Generator().manual_seed(0)
     shapes = [(3, 4), (0,), (), (7,)]
     spec = [(f"l{i}", s, np.float32) for i, s in enumerate(shapes)]
     spans = spec_spans(spec)
     total = sum(s for _o, s in spans)
     flat = torch.randn(total, generator=gen)
-    sumsq = segment_sumsq(flat, spans)
+    table = FlatLamb(spec, [True] * len(spec), 0.1).table
+    assert table.sizes.tolist() == [s for _o, s in spans] == [12, 0, 1, 7]
+    assert table.chunk_leaf.tolist() == [0, 2, 3]
+    assert table.chunk0.tolist() == [0, 1, 1, 2, 3]
+    sumsq = mt.sumsq(table.bind([[flat[o:o + s] for o, s in spans]]))
     for (o, s), got in zip(spans, sumsq):
         torch.testing.assert_close(got, (flat[o:o + s] ** 2).sum())
-    expanded = expand_segments(torch.arange(4.0), segment_sizes(spans, "cpu"), total)
-    assert expanded.tolist() == [0.0] * 12 + [2.0] + [3.0] * 7
 
 
 # the fields of a flat optimizer, and its learning rate at these counts

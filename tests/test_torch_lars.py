@@ -15,7 +15,7 @@ from dedloc_tpu.optim.schedules import linear_warmup_cosine_annealing as jax_cos
 from dedloc_tpu_torch.averaging.device_flat import DeviceFlatPipeline
 from dedloc_tpu_torch.models import convert
 from dedloc_tpu_torch.models.swav import make_prototype_post_apply
-from dedloc_tpu_torch.optim.flat import FlatLars
+from dedloc_tpu_torch.optim.flat import FlatLars, spec_spans
 from dedloc_tpu_torch.optim.lars import Lars, LarsState
 from dedloc_tpu_torch.optim.schedules import linear_warmup_cosine_annealing
 from dedloc_tpu_torch.parallel.train_step import (
@@ -171,19 +171,31 @@ def test_flat_lars_matches_the_per_leaf_apply(swav_setup, post):
 
 
 def test_flat_lars_matches_jax_flat_lars(swav_setup):
-    """One ``FlatLars.update`` against the JAX package's on the same flat
-    buffers (the JAX class fed the same spec)."""
+    """One ``FlatLars`` step (candidate, then commit) over the spec's leaves
+    against the JAX package's ``FlatLars.update`` on the same flat buffers
+    (the JAX class fed the same spec): the new momentum and parameters."""
     params, spec, flats = swav_setup
     layout = FlatLayout(spec, params)
-    fp = layout.flatten(params)
+    spans = spec_spans(spec)
+    fp = torch.cat([convert.to_jax_layout(params[n], perm).reshape(-1)
+                    for n, _o, _s, _shape, perm in layout.entries])
     mom = torch.from_numpy(flats[0] * 0.1)
+    g = torch.from_numpy(flats[1])
     count = torch.tensor(1, dtype=torch.int32)
-    upd, new_mom = _flat_tx(spec).update(torch.from_numpy(flats[1]), fp, mom, count)
+    leaves = lambda flat: [flat[o:o + s] for o, s in spans]
+    new_p, new_mom = fp.clone(), mom.clone()
+    out = [torch.empty(s) for _o, s in spans]
+    ftx = _flat_tx(spec)
+    opt = LarsState(momentum=None, schedule_count=count)
+    neg_rate = ftx.candidate(ftx.table.bind([leaves(g), leaves(fp), leaves(mom), out]),
+                             opt)
+    ftx.commit(ftx.table.bind([leaves(g), leaves(new_p), leaves(new_mom), out]),
+               torch.tensor(True), neg_rate)
     jtx = JaxFlatLars(spec, [False] * len(spec), jax_cosine(*SCHEDULE), weight_decay=1e-4)
     jupd, jmom = jtx.update(jnp.asarray(flats[1]), jnp.asarray(fp.numpy()),
                             jnp.asarray(mom.numpy()), jnp.asarray(1, jnp.int32))
     _rel(new_mom.numpy(), jmom, RTOL)
-    _rel(upd.numpy(), jupd, RTOL)
+    _rel(new_p.numpy(), fp.numpy() + np.asarray(jupd), RTOL)
 
 
 @pytest.mark.parametrize("flat_apply", [False, True])

@@ -31,7 +31,14 @@ Phases (any failure exits non-zero):
               backward, combine and its backward, the gather's backward)
               at the cell's T = 16,384, k = 6, H = 2,048, F = 1,408 with
               8 of 64 experts held: each against its plain version on the
-              live rows, timed beside its bytes. The flash tolerance
+              live rows, timed beside its bytes. The KDA chunk kernels
+              (``ops/csrc/kda.cu``) at the Kimi cell's [2, 8192, 32, 128]
+              against their fp32 mirror (2% of max |ref|, 1% relative L2),
+              two backward runs bitwise equal, each timed beside its
+              ``portbench/counts/kda.py`` bound, and one micro-step of a
+              4-layer Kimi-Linear-48B-A3B model (3 KDA + 1 MLA) with the
+              launch counters reset just before (each KDA layer: 4 forward
+              kernel launches with the recompute, 2 backward). The flash tolerance
               scales with each sample's own max |ref|; the mean signed error toward |ref|
               shows a bias that the tolerance would pass. Device time per
               call (CUDA-graph replays between CUDA events, median) of the
@@ -265,6 +272,7 @@ WITNESS_MLM_TOL = 1e-4
 WITNESS_LOSS_TOL = 5e-3
 LN_ROWS, LN_WIDTH = 12 * 512, 1024
 FLASH_SRC = "dedloc_tpu_torch/ops/csrc/flash_attention.cu"
+BUILT = ("flash_attention", "kda")  # the sources under ops/csrc/
 LN_SRC = "dedloc_tpu_torch/ops/fused_ln.py"
 FLASH_PY = "dedloc_tpu/ops/flash_attention.py"
 
@@ -365,23 +373,29 @@ def phase_device() -> str:
 
 def phase_build() -> tuple:
     """Builds the CUDA kernels; returns the seconds it took and, per kernel
-    instance (``flash_bwd_dq_kernel<64>``), the registers a thread is
-    launched with and the bytes ptxas spills (stores)."""
+    instance (``flash_bwd_dq_kernel<64>``, ``kda_bwd_intra_kernel``), the
+    registers a thread is launched with and the bytes ptxas spills
+    (stores)."""
     from dedloc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build("flash_attention")
+    for source in BUILT:
+        _build.build(source)
     seconds = time.perf_counter() - t0
-    log(f"[build] nvcc flash_attention.cu: {seconds:.1f} s")
+    log(f"[build] nvcc {', '.join(s + '.cu' for s in BUILT)}: {seconds:.1f} s")
     # one line per kernel instance: registers and spills (ptxas -v); and
     # any ptxas warning (a serialised wgmma pipeline says so there)
     name, spill_bytes, regs = "?", 0, {}
-    for line in _build.build_log("flash_attention").splitlines():
+    for line in "\n".join(_build.build_log(s) for s in BUILT).splitlines():
         entry = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_kernel)I((?:L[ib]\d+E)+)",
+                          line)
+        plain = re.search(r"Compiling entry function '.*?(kda_(?:fwd|bwd)_(?:intra|state)_kernel)",
                           line)
         if entry:  # <D>, or <D_QK,D_V,causal> for the two-width kernels
             args = ",".join(re.findall(r"L[ib](\d+)E", entry.group(2)))
             name = f"{entry.group(1)}<{args}>"
+        elif plain:
+            name = plain.group(1)
         elif "spill stores" in line:
             spill_bytes = int(re.search(r"(\d+) bytes spill stores", line).group(1))
             log(f"  {name}: {line.strip()}")
@@ -805,6 +819,162 @@ def expert_rows_rows(gen) -> list:
     return result
 
 
+# the Kimi cell's KDA chunk op: [B, S, H, d_k = d_v] at chunks of 16
+KDA_SHAPE = (2, 8192, 32, 128)
+KDA_SRC = "dedloc_tpu_torch/ops/csrc/kda.cu"
+KDA_LAYERS = 4  # the micro-step's model: one period, 3 KDA + 1 MLA
+
+
+def _kda_inputs(b, s, h, d, gen):
+    """q, k L2-normalised and v in bf16; the decay as the Kimi cell's
+    initial weights give it (``A_log`` log U(1, 16), up to ~1.6 a token on
+    the fastest channels); β in (0, 1); dO in bf16."""
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    q = torch.nn.functional.normalize(rnd(b, s, h, d), dim=-1).bfloat16()
+    k = torch.nn.functional.normalize(rnd(b, s, h, d), dim=-1).bfloat16()
+    v = rnd(b, s, h, d).bfloat16()
+    a = torch.exp(torch.rand(h, 1, generator=gen, device="cuda") * 2.77)
+    g = (-a * torch.nn.functional.softplus(rnd(b, s, h, d) * 0.5 - 4.0)).contiguous()
+    beta = torch.rand(b, s, h, generator=gen, device="cuda")
+    return q, k, v, g, beta, rnd(b, s, h, d).bfloat16()
+
+
+def kda_rows(gen, seed: int) -> list:
+    """The KDA chunk kernels at the Kimi cell's shape: the forward and
+    backward against their plain mirror (``kda_fwd_plain`` and
+    ``kda_bwd_plain``: the same algorithm in fp32 on the bf16-rounded
+    inputs), two backward runs bitwise equal, then each kernel timed by
+    CUDA-graph replay beside its ``portbench/counts/kda.py`` bound (each
+    operand read once and each output written once, the chunk states
+    included) and the mirror's time. Then one micro-step of a 4-layer
+    Kimi-Linear-48B-A3B model (3 KDA + 1 MLA, 8 experts held, 20,480 ids)
+    at the cell's [2, 8192], the launch counters reset just before it: each
+    KDA layer runs the two forward kernels in the forward and again in the
+    recompute, and the two backward kernels once. One row per kernel."""
+    from dedloc_tpu_torch.ops import kda
+    from dedloc_tpu_torch.parallel.train_step import make_accumulate_step, zeros_like_grads
+    from dedloc_tpu_torch.roles.common import build_loss_fn, build_model
+    from portbench.counts import kda as kda_counts
+
+    b, s, h, d = KDA_SHAPE
+    log(f"[kernels] KDA chunk at [{b}, {s}, {h}], d_k = d_v = {d}, chunks of {kda.CHUNK}")
+    q, k, v, g, beta, do = _kda_inputs(b, s, h, d, gen)
+    scale = d ** -0.5
+    o, norm, saved = kda.kda_fwd(q, k, v, g, beta, scale)
+    grads = kda.kda_bwd(q, k, v, g, beta, scale, saved, do)
+    again = kda.kda_bwd(q, k, v, g, beta, scale, saved, do)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+    if not bitwise:
+        fail("KDA backward: two runs differ")
+    del again
+    plain = [x.float() for x in (q, k, v, g, beta)]
+
+    # every product with the state rounds its operands to bf16 (2^-9
+    # relative) and sums in fp32, and the recurrence is contractive: within
+    # 2% of the tensor's largest value and 1% in relative L2 (the card
+    # test's tolerance)
+    def close(name, got, want):
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        if not (bool(torch.isfinite(got).all()) and err <= 2e-2 * float(want.abs().max())
+                and rel <= 1e-2):
+            fail(f"KDA {name}: max err {err}, rel L2 {rel}")
+        return err
+
+    with torch.no_grad():
+        o_p, norm_p, saved_p = kda.kda_fwd_plain(*plain, scale)
+        errs = dict(kda_fwd=max(close("o", o, o_p), close("norm", norm, norm_p)))
+        grads_p = kda.kda_bwd_plain(*plain, scale, saved_p, do.float())
+        errs["kda_bwd"] = max(close(n, x, y) for n, x, y in
+                              zip(("dq", "dk", "dv", "dg", "dbeta"), grads, grads_p))
+        del o_p, norm_p, grads_p
+        # the mirror a kernel at a time: its chunked inputs, then each piece
+        cq, ck, cv, cg, cb, cdo = (kda._chunked(x, kda.CHUNK) for x in (*plain, do))
+        n = cq.shape[2]
+        big_g = cg.cumsum(-2)
+        s0_p, u_p, m_p, w_p = saved_p
+        _g, _a, _m, _t, _w, ut_p = kda._per_group(kda._fwd_intra, n, kda.GROUP, cq, ck, cv,
+                                                   cg, cb)
+        ds_p, du_p = kda._bwd_states(cq, ck, big_g, w_p, m_p, cdo, scale)
+        plain_calls = dict(
+            kda_fwd_intra=lambda: kda._per_group(kda._fwd_intra, n, kda.GROUP, cq, ck, cv,
+                                                 cg, cb),
+            kda_fwd_state=lambda: kda._fwd_states(cq, ck, big_g, w_p, ut_p, m_p, scale),
+            kda_bwd_state=lambda: kda._bwd_states(cq, ck, big_g, w_p, m_p, cdo, scale),
+            kda_bwd_intra=lambda: kda._per_group(
+                lambda *a: kda._bwd_intra(*a, scale), n, kda.GROUP, cq, ck, cv, cg, cb,
+                s0_p, ds_p, u_p, du_p, cdo),
+        )
+        plain_ms = {name: event_ms(fn, 1) for name, fn in plain_calls.items()}
+    del plain_calls, saved_p, s0_p, u_p, m_p, w_p, ut_p, ds_p, du_p, cq, ck, cv, cg, cb, cdo
+    gc.collect()
+    torch.cuda.empty_cache()
+    s0, u, m, w = saved
+    ss = torch.empty(b * h, d // kda.BV, device="cuda")
+    dh, du = torch.empty_like(s0), torch.empty_like(u)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dg, dbeta = torch.empty_like(g), torch.empty_like(beta)
+    calls = dict(
+        kda_fwd_intra=lambda: kda.launch_fwd_intra(q, k, v, g, beta, w, u, m),
+        kda_fwd_state=lambda: kda.launch_fwd_state(q, k, g, w, u, m, o, s0, ss, scale),
+        kda_bwd_state=lambda: kda.launch_bwd_state(q, k, g, w, m, do, dh, du, scale),
+        kda_bwd_intra=lambda: kda.launch_bwd_intra(q, k, v, g, beta, s0, dh, u, du, do, dq,
+                                                   dk, dv, dg, dbeta, scale),
+    )
+    counted = kda_counts.counts(b, s, h, d, d, kda.CHUNK)
+    result = []
+    for name, fn in calls.items():
+        kernel = f"{name}_kernel"
+        n_bytes, macs = counted[kernel]
+        result.append(dict(
+            name=name, kernel=kernel, route="cuda", source=KDA_SRC,
+            path="Kimi Linear KDA", replaces="none (the JAX package has no linear-attention "
+            "layer)", shape=[b, s, h, d, d, kda.CHUNK],
+            err=(errs["kda_fwd" if "fwd" in name else "kda_bwd"], None),
+            tol="2% of max |ref| and 1% relative L2, against the fp32 mirror",
+            bitwise_repeat=bitwise, ms=cuda_ms(fn, 10, 2), plain_ms=plain_ms[name],
+            plain_timing="CUDA events, the mirror's piece for this kernel",
+            library_ms=None, bytes=n_bytes, tensor_flops=2 * macs,
+            **bound(n_bytes, tensor_cores=2 * macs / BF16_FLOPS * 1e3)))
+        log(f"  {name}: {result[-1]['ms']:.4f} ms (bound {result[-1]['bound_ms']:.4f}, "
+            f"{100 * result[-1]['bound_ms'] / result[-1]['ms']:.1f}%; plain "
+            f"{result[-1]['plain_ms']:.1f})")
+    del q, k, v, g, beta, do, o, norm, saved, grads, s0, u, m, w, ss, dh, du, dq, dk, dv
+    del dg, dbeta, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model = build_model("kimi-linear-48b-a3b", device="cuda", seed=seed,
+                             moe_experts_held=8,
+                             overrides=dict(num_hidden_layers=KDA_LAYERS, vocab_size=20480))
+    params = dict(model.named_parameters())
+    step = make_accumulate_step(build_loss_fn(model))
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    batch = {"input_ids": ids, "labels": torch.roll(ids, -1, 1)}
+    n_kda = sum(cfg.is_kda(i) for i in range(KDA_LAYERS))
+    kda.kda_fwd.launches = kda.kda_bwd.launches = 0
+    _acc, _n, metrics = step(params, zeros_like_grads(params), 0, batch)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(metrics["loss"])):
+        fail(f"Kimi micro-step: loss {float(metrics['loss'])}")
+    # two kernels a wrapper call: the forward's in the forward and the
+    # recompute, the backward's once
+    got = dict(kda_fwd=kda.kda_fwd.launches, kda_bwd=kda.kda_bwd.launches)
+    if got != dict(kda_fwd=2 * 2 * n_kda, kda_bwd=2 * n_kda):
+        fail(f"Kimi micro-step, {n_kda} KDA layers: launches {got}")
+    launches = dict(kda_fwd_intra=got["kda_fwd"] // 2, kda_fwd_state=got["kda_fwd"] // 2,
+                    kda_bwd_state=got["kda_bwd"] // 2, kda_bwd_intra=got["kda_bwd"] // 2)
+    log(f"[kernels] Kimi micro-step at [{b}, {s}], {KDA_LAYERS} layers ({n_kda} KDA): "
+        f"launches {launches}, loss {float(metrics['loss']):.4f}")
+    del model, params, step, _acc, metrics
+    counts = dict(launches=launches, launches_per_step=launches)
+    for row in result:
+        row["launch_counts"] = counts
+    return result
+
+
 MT_SRC = "dedloc_tpu_torch/ops/multi_tensor.py"
 MT_KERNELS = dict(sumsq="_sq_kernel + _leaf_sums_kernel",
                   all_finite="_sq_kernel + _leaf_sums_kernel",
@@ -1072,6 +1242,9 @@ def phase_kernels(seed: int) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     results += expert_rows_rows(torch.Generator(device="cuda").manual_seed(seed + 2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    results += kda_rows(torch.Generator(device="cuda").manual_seed(seed + 4), seed)
     gc.collect()
     torch.cuda.empty_cache()
     results += multi_tensor_rows(torch.Generator(device="cuda").manual_seed(seed + 3))

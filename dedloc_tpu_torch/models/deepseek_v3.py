@@ -89,6 +89,9 @@ class DeepseekV3Config:
     rope_theta: float = 50000.0
     max_position_embeddings: int = 8192
     initializer_range: float = 0.02
+    # no rotary embedding: q/k keep their 192-wide [nope | rope] layout and
+    # the rope columns enter the scores as they are (Kimi Linear's MLA)
+    mla_use_nope: bool = False
     # training rules the published config does not give (DeepSeek-V3,
     # arXiv 2412.19437 §2.1.2, §4.2)
     bias_update_speed: float = 1e-3
@@ -129,10 +132,6 @@ class DeepseekV3Config:
             base.update(overrides)
             return DeepseekV3Config(**base)
         raise ValueError(f"unknown model_size {model_size!r} (expected one of {FAMILY})")
-
-
-def is_deepseek(model_size: str) -> bool:
-    return model_size in FAMILY
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -201,9 +200,11 @@ class Attention(nn.Module):
         with region("norm"):
             c_kv = rms_norm(c_kv, self.kv_a_layernorm.weight, cfg.rms_norm_eps)
         kv = _linear(c_kv, self.kv_b_proj.weight, dt).view(b, s, nh, nope + dv)
-        q_pe = apply_rope(q[..., nope:], cos, sin).to(dt)
-        k_pe = apply_rope(k_pe.view(b, s, 1, rope), cos, sin).to(dt)
-        q = torch.cat([q[..., :nope], q_pe], -1)
+        k_pe = k_pe.reshape(b, s, 1, rope)
+        if not cfg.mla_use_nope:
+            q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin).to(dt)], -1)
+            k_pe = apply_rope(k_pe, cos, sin)
+        k_pe = k_pe.to(dt)
         k = torch.cat([kv[..., :nope], k_pe.expand(b, s, nh, rope)], -1)
         v = kv[..., nope:].contiguous()
         o = _flash.flash_attention(q, k, v, causal=True)
@@ -275,8 +276,9 @@ class DecoderLayer(nn.Module):
         self.mlp = SwiGLU(cfg.hidden_size, cfg.intermediate_size) if dense else MoE(cfg)
 
     def forward(self, x: torch.Tensor, cos, sin, cfg: DeepseekV3Config):
-        """(x', balance, loads) of one layer on the fp32 residual ``x``;
-        a dense layer gives zeros for the last two."""
+        """(x', balance, loads, None) of one layer on the fp32 residual
+        ``x``; a dense layer gives None for balance and loads. (The last
+        place is a token mixer's counter: ``models/kimi_linear.py``.)"""
         with region("norm"):
             h = rms_norm(x, self.input_layernorm.weight, cfg.rms_norm_eps)
         with region("attention"):
@@ -290,7 +292,7 @@ class DecoderLayer(nn.Module):
             with region("ffn"):
                 y = self.mlp(h)
             balance = loads = None
-        return x + y, balance, loads
+        return x + y, balance, loads, None
 
 
 def _keep_flash(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -299,57 +301,68 @@ def _keep_flash(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: DeepseekV3Config):
+    def __init__(self, cfg: DeepseekV3Config, layer=None):
         super().__init__()
+        layer = layer or (lambda c, i: DecoderLayer(c, i < c.first_k_dense_replace))
         self.embed_tokens = nn.Module()
         self.embed_tokens.weight = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size))
-        self.layers = nn.ModuleList([DecoderLayer(cfg, i < cfg.first_k_dense_replace)
-                                     for i in range(cfg.num_hidden_layers)])
+        self.layers = nn.ModuleList([layer(cfg, i) for i in range(cfg.num_hidden_layers)])
         self.final_layernorm = RMSNorm(cfg.hidden_size)
 
 
 class DeepseekV3ForCausalLM(nn.Module):
-    def __init__(self, cfg: DeepseekV3Config):
+    def __init__(self, cfg: DeepseekV3Config, layer=None):
         super().__init__()
         self.cfg = cfg
-        self.model = Model(cfg)
+        self.model = Model(cfg, layer)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size)
 
     def _trunk(self, input_ids: torch.Tensor):
         """(final-normed hidden states [B, S, H] fp32, each expert layer's
-        balance loss, each one's loads [E])."""
+        balance loss, each one's loads [E], the token mixers' counters: the
+        fourth place of each layer's output that is not None)."""
         cfg = self.cfg
         x = self.model.embed_tokens.weight[input_ids.long()].float()
-        cos, sin = rope_tables(input_ids.shape[1], cfg.qk_rope_head_dim, cfg.rope_theta,
-                               x.device)
-        balances, loads = [], []
+        cos = sin = None
+        if not cfg.mla_use_nope:
+            cos, sin = rope_tables(input_ids.shape[1], cfg.qk_rope_head_dim,
+                                   cfg.rope_theta, x.device)
+        balances, loads, counters = [], [], []
         for layer in self.model.layers:
             if torch.is_grad_enabled():
-                x, balance, load = checkpoint(
+                x, balance, load, counter = checkpoint(
                     layer, x, cos, sin, cfg, use_reentrant=False,
                     context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                  _keep_flash))
             else:
-                x, balance, load = layer(x, cos, sin, cfg)
+                x, balance, load, counter = layer(x, cos, sin, cfg)
             if balance is not None:
                 balances.append(balance)
                 loads.append(load.detach())
+            if counter is not None:
+                counters.append(counter.detach())
         with region("norm"):
             h = rms_norm(x, self.model.final_layernorm.weight, cfg.rms_norm_eps)
-        return h, balances, loads
+        return h, balances, loads, counters
 
     def logits(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The next-token logits ``[B, S, V]`` in fp32."""
-        h, _b, _l = self._trunk(input_ids)
+        h = self._trunk(input_ids)[0]
         return _linear(h, self.lm_head.weight, compute_dtype(h)).float()
 
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of one packed micro-batch: ``input_ids`` and the
         next-token ``labels`` ``[B, S]`` (-100: no label)."""
+        h, balances, loads, _counters = self._trunk(input_ids)
+        return self._loss(h, balances, loads, labels)
+
+    def _loss(self, h: torch.Tensor, balances, loads, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) from the trunk's normed states, balance losses
+        and loads."""
         cfg = self.cfg
-        b, s = input_ids.shape
-        h, balances, loads = self._trunk(input_ids)
+        b, s = labels.shape
         with region("head"):
             logits = _linear(h, self.lm_head.weight, compute_dtype(h)).float()
             lm = F.cross_entropy(logits.view(b * s, -1), labels.reshape(-1).long(),
@@ -376,6 +389,9 @@ class DeepseekV3ForCausalLM(nn.Module):
                if isinstance(l.mlp, MoE)]
         for bias, load in zip(moe, loads):
             bias_update(bias, load, self.cfg.bias_update_speed)
+
+
+Config, CausalLM = DeepseekV3Config, DeepseekV3ForCausalLM  # the family's builders
 
 
 def init_weights(model: DeepseekV3ForCausalLM, generator: torch.Generator) -> None:

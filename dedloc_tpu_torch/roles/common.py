@@ -74,17 +74,19 @@ def build_model(
     on every rank, and cut to this rank's blocks by the TP/EP rules
     (``parallel/sharding.py``).
 
-    A DeepSeek-V3 size (``moonlight-16b-a3b``, its twin
-    ``deepseek-v3-tiny``; ``models/deepseek_v3.py``) builds that causal LM,
-    holding ``moe_experts_held`` of its routed experts (0: all) as rank
+    A causal-LM size (DeepSeek-V3's ``moonlight-16b-a3b`` and its twin ``deepseek-v3-tiny``, ``models/deepseek_v3.py``; Kimi
+    Linear's ``kimi-linear-48b-a3b`` and ``kimi-linear-tiny``,
+    ``models/kimi_linear.py``) builds that causal LM, holding
+    ``moe_experts_held`` of its routed experts (0: all) as rank
     ``expert_rank`` of an expert axis; ``overrides`` sets any other field
-    of its config. Its weights are drawn on ``device`` itself."""
-    from dedloc_tpu_torch.models import deepseek_v3
-
+    of its config. Its weights are drawn on ``device`` itself. Any other
+    size is ALBERT's (``tiny``, ``large``); an unknown one raises, naming
+    every size."""
     dev = resolve_device(device)
-    if deepseek_v3.is_deepseek(model_size):
-        return _build_deepseek(model_size, dev, seed, remat_policy, attention_impl,
-                               vocab_size, moe_experts_held, expert_rank, overrides)
+    check_model_size(model_size)
+    if is_causal_lm(model_size):
+        return _build_causal_lm(model_size, dev, seed, remat_policy, attention_impl,
+                                vocab_size, moe_experts_held, expert_rank, overrides)
     overrides = {}
     for key, value in (("ring_mesh", ring_mesh), ("pipe_mesh", pipe_mesh),
                        ("moe_mesh", moe_mesh), ("mesh", mesh)):
@@ -118,11 +120,43 @@ def build_model(
     return cfg, model.to(dev)
 
 
-def _build_deepseek(model_size, dev, seed, remat_policy, attention_impl, vocab_size,
-                    experts_held, expert_rank, overrides):
-    from dedloc_tpu_torch.models.deepseek_v3 import (
-        DeepseekV3Config, DeepseekV3ForCausalLM, init_weights as init_deepseek)
+ALBERT_SIZES = ("tiny", "large")
 
+
+def causal_lm_family(model_size: str):
+    """The model module of a causal-LM size (``models/deepseek_v3.py`` or
+    ``models/kimi_linear.py``), or None."""
+    from dedloc_tpu_torch.models import deepseek_v3, kimi_linear
+
+    for module in (deepseek_v3, kimi_linear):
+        if model_size in module.FAMILY:
+            return module
+    return None
+
+
+def is_causal_lm(model_size: str) -> bool:
+    return causal_lm_family(model_size) is not None
+
+
+def causal_lm_config(model_size: str, **overrides):
+    """The config of a causal-LM size (DeepSeek-V3's or Kimi Linear's)."""
+    return causal_lm_family(model_size).Config.named(model_size, **overrides)
+
+
+def check_model_size(model_size: str) -> None:
+    """Raise for a ``--training.model_size`` no family accepts, naming
+    every size of every family."""
+    from dedloc_tpu_torch.models import deepseek_v3, kimi_linear
+
+    known = ALBERT_SIZES + deepseek_v3.FAMILY + kimi_linear.FAMILY
+    if model_size not in known:
+        raise ValueError(f"unknown model_size {model_size!r} (expected one of "
+                         f"{', '.join(known)})")
+
+
+def _build_causal_lm(model_size, dev, seed, remat_policy, attention_impl, vocab_size,
+                     experts_held, expert_rank, overrides):
+    family = causal_lm_family(model_size)
     if attention_impl not in ("", "flash") or remat_policy:
         raise ValueError(f"{model_size} runs flash attention under its own remat "
                          "(each layer recomputed, flash's out and lse kept)")
@@ -130,13 +164,13 @@ def _build_deepseek(model_size, dev, seed, remat_policy, attention_impl, vocab_s
     if vocab_size:
         fields["vocab_size"] = vocab_size
     fields.update(overrides or {})
-    cfg = DeepseekV3Config.named(model_size, **fields)
+    cfg = causal_lm_config(model_size, **fields)
     with torch.device("meta"):
-        model = DeepseekV3ForCausalLM(cfg)
+        model = family.CausalLM(cfg)
     if dev.type == "meta":
         return cfg, model
     model = model.to_empty(device=dev)
-    init_deepseek(model, torch.Generator(device=dev).manual_seed(seed))
+    family.init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return cfg, model
 
 

@@ -16,7 +16,9 @@ variant runs with ``--training.moe_experts`` (and
 
 ``--training.model_size moonlight-16b-a3b`` (or its test twin
 ``deepseek-v3-tiny``) trains the DeepSeek-V3 causal LM
-(``models/deepseek_v3.py``) on packed causal-LM batches
+(``models/deepseek_v3.py``), and ``kimi-linear-48b-a3b`` (twin
+``kimi-linear-tiny``) the Kimi Linear one (``models/kimi_linear.py``), on
+packed causal-LM batches
 (``data/packed.py``), one expert-parallel rank per process: the rank
 ``--training.mesh_device_offset`` of an expert axis of
 ``--training.mesh_expert_devices``, or holding
@@ -26,7 +28,9 @@ norm and the head on the last of them). Its batches are synthetic packed
 documents; ``--training.streaming_files`` is refused. Each router's
 correction bias moves after every apply (the flat apply's ``post_apply``)
 from the loads of the step's micro-batches, and the held experts' pairs go
-to the telemetry registry at the boundary's loss read.
+to the telemetry registry at the boundary's loss read; so does Kimi
+Linear's largest KDA final-state norm (the gauge ``kda.state_norm_max``),
+read with the loss.
 
     python -m dedloc_tpu_torch.roles.trainer --dht.experiment_prefix run \\
         --optimizer.target_batch_size 48 --training.per_device_batch_size 12
@@ -64,7 +68,6 @@ from dedloc_tpu_torch.collaborative.optimizer import (
 from dedloc_tpu_torch.core.config import CollaborationArguments, parse_config
 from dedloc_tpu_torch.data.mlm import max_predictions_for
 from dedloc_tpu_torch.data.packed import packed_lm_batches
-from dedloc_tpu_torch.models import deepseek_v3
 from dedloc_tpu_torch.data.streaming import peer_shuffle_seed
 from dedloc_tpu_torch.ops import flash_attention, fused_ln
 from dedloc_tpu_torch.collaborative.slice import Slice
@@ -81,10 +84,13 @@ from dedloc_tpu_torch.roles.common import (
     build_loss_fn,
     build_model,
     build_optimizer,
+    causal_lm_config,
+    causal_lm_family,
     checkpoint_kwargs,
     configure_role_telemetry,
     drop_collator_keys,
     force_cpu_if_requested,
+    is_causal_lm,
     loss_keys,
     synthetic_mlm_batches,
 )
@@ -106,7 +112,7 @@ def slice_axes(args: CollaborationArguments):
     """The slice mesh's (axis names, shape) from the flags, with the JAX
     trainer's refusals; None for a one-device peer."""
     tr = args.training
-    if deepseek_v3.is_deepseek(tr.model_size):
+    if is_causal_lm(tr.model_size):
         if tr.streaming_files:
             raise ValueError(f"{tr.model_size} trains on synthetic packed documents "
                              "(data/packed.py); --training.streaming_files is not read")
@@ -183,7 +189,7 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     authorizer, authority_public_key = (build_authorizer(args) if leader
                                         else (None, None))
     on = lambda name: mesh if mesh is not None and name in mesh.shape else None
-    deepseek = deepseek_v3.is_deepseek(tr.model_size)
+    deepseek = is_causal_lm(tr.model_size)
     held, rank = expert_share(tr) if deepseek else (0, 0)
     cfg, model = build_model(tr.model_size, tr.remat_policy, tr.attention_impl,
                              tr.vocab_size, device=device, seed=tr.seed,
@@ -254,6 +260,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     # the apply moves each correction bias by them (post_apply)
     loads_dev = held_dev = post_apply = None
     rows_given = 0
+    # Kimi Linear: the largest KDA final-state norm since the last read
+    norm_dev = None
     if deepseek:
         loads_dev = torch.zeros(cfg.moe_layers, cfg.n_routed_experts, device=device)
         held_dev = torch.zeros(cfg.moe_layers, cfg.held, device=device)
@@ -343,7 +351,8 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
     recorder = StepRecorder(
         telemetry=tele,
         model_tflops_per_sample=(
-            deepseek_v3.flops_per_token(cfg, seq) * seq / 1e12 if deepseek
+            causal_lm_family(tr.model_size).flops_per_token(cfg, seq) * seq / 1e12
+            if deepseek
             else albert_tflops_per_sample(cfg, seq, max_predictions_for(seq))
         ),
         peak_tflops=chip_peak_tflops() if device.type == "cuda" else 0.0,
@@ -383,6 +392,10 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                         # T * k sorted rows a layer: a host count of shapes
                         rows_given += (batch["input_ids"].numel()
                                        * cfg.num_experts_per_tok * cfg.moe_layers)
+                    if "kda_state_norm" in metrics:
+                        peak = metrics["kda_state_norm"].max()
+                        norm_dev = (peak if norm_dev is None
+                                    else torch.maximum(norm_dev, peak))
                     mini_steps += 1
                 if srec is not None:
                     # recording only: wait for the kernels so fwd_bwd
@@ -403,8 +416,15 @@ def run_trainer(args: CollaborationArguments) -> TrainState:
                     time.perf_counter() - boundary_start
                 )
             if stepped:
-                loss_sum = float(loss_sum_dev)  # the one sync per global step
-                mlm_sum = float(mlm_sum_dev)
+                # the one sync per global step
+                read = [loss_sum_dev.detach(), mlm_sum_dev.detach()]
+                if norm_dev is not None:
+                    read.append(norm_dev)
+                loss_sum, mlm_sum, *norm = torch.stack(read).tolist()
+                if norm_dev is not None:
+                    if tele is not None:
+                        tele.gauge("kda.state_norm_max").set(norm[0])
+                    norm_dev = None
                 if deepseek:
                     _record_expert_loads(tele, held_dev, rows_given)
                     rows_given = 0
@@ -484,7 +504,7 @@ def expert_share(tr) -> tuple:
     """(experts held, rank) of a DeepSeek-V3 trainer: ``moe_experts_held``
     or the expert axis's share (all of them with neither), the rank being
     ``mesh_device_offset``."""
-    n_routed = deepseek_v3.DeepseekV3Config.named(tr.model_size).n_routed_experts
+    n_routed = causal_lm_config(tr.model_size).n_routed_experts
     held = tr.moe_experts_held
     if not held and tr.mesh_expert_devices > 1:
         if n_routed % tr.mesh_expert_devices:
@@ -640,7 +660,7 @@ def _make_batches(args: CollaborationArguments, cfg, public_key: bytes,
     shuffling); numpy batches, the JAX trainer's for the same inputs."""
     seed = peer_shuffle_seed(public_key)  # per-peer independent shuffling
     batch_size = slice_batch or args.training.per_device_batch_size
-    if deepseek_v3.is_deepseek(args.training.model_size):
+    if is_causal_lm(args.training.model_size):
         return packed_lm_batches(cfg.vocab_size, batch_size,
                                  min(args.training.seq_length,
                                      cfg.max_position_embeddings), seed)

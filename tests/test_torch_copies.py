@@ -310,16 +310,21 @@ def test_record_schemas_equal_the_reference(module, model):
 
 
 # the port's own plain references (not copies): plain torch, so they import
-# nothing of the port's kernels, nothing of the port and nothing of JAX
-PLAIN_REFERENCES = ("testing/plain_deepseek_v3.py",)
+# nothing of the port's kernels, nothing of the port and nothing of JAX; a
+# relative import may name another plain reference alone
+PLAIN_REFERENCES = ("testing/plain_deepseek_v3.py", "testing/plain_kimi_linear.py")
 
 
 @pytest.mark.parametrize("rel", PLAIN_REFERENCES)
 def test_plain_reference_imports_only_torch(rel):
     tree = ast.parse((REPO / "dedloc_tpu_torch" / rel).read_text())
+    siblings = {r.split("/")[-1][:-3] for r in PLAIN_REFERENCES}
     roots = set()
     for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom) and node.module:
+        if isinstance(node, ast.ImportFrom) and node.level:
+            names = {node.module} if node.module else {a.name for a in node.names}
+            assert names <= siblings, names
+        elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
         elif isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
